@@ -1,4 +1,4 @@
-"""PPO at production scale on one chip (NEXT #6's TPU-scale run).
+"""PPO at production scale on one device.
 
 The CI-sized credit-assignment pin (tests/test_ppo.py) proves PPO learns
 the N=64 shared-cohesion task at 16 envs / 60 iterations; this example is
@@ -9,7 +9,7 @@ jit). Difference rewards (rl/env.py reward_mode="difference", the
 closed-form counterfactual D_i = G - G_without_i) sharpen credit
 assignment at scale.
 
-Run (v5e, defaults): ~8.4M agent-steps per iteration.
+Run (defaults: ~8.4M agent-steps per iteration):
 
     python examples/ppo_scale.py --envs 4096 --agents 64 --iters 20
 """

@@ -2,7 +2,7 @@
 //
 // The reference's runtime-around-compute is native Rust: a frame loop that
 // records/submits command buffers and mirrors state into GPU buffers
-// (src/main.rs:836-1013, gfx.rs:420-422). The TPU equivalent is the host
+// (src/main.rs:836-1013, gfx.rs:420-422). The equivalent here is the host
 // side of the device loop: draining simulation snapshots to disk (frames,
 // trajectories) without ever blocking the dispatch thread. This library
 // provides that as a job ring + background worker:

@@ -1,4 +1,4 @@
-"""nenbody-tpu: a TPU-native multi-agent 2D simulation framework.
+"""nenbody-tpu: a GPU multi-agent 2D simulation framework.
 
 A ground-up JAX/XLA/Pallas rebuild of the capabilities of Dasch0/nenbody
 (a Rust/wgpu multi-agent 2D sim with per-agent 1D computer vision):

@@ -161,9 +161,8 @@ def _add_policy_flags(p: argparse.ArgumentParser):
 
 def _add_train_vision_flags(p: argparse.ArgumentParser):
     """Observation appearance for the train-family commands (train/eval/
-    datagen/bc/export share _train_env). Wireframe observations route the
-    score-function trainers through the batched exact-sprite kernel
-    (ops.wireframe.render_rows_wireframe_batched)."""
+    datagen/bc/export share _train_env). Wireframe observations render
+    through the XLA exact-sprite renderer (vision.render)."""
     p.add_argument(
         "--sprite-mode", choices=["disc", "wireframe"], default=None,
         help="eye-line sprite model for the observations: disc (fast, "
@@ -756,10 +755,10 @@ def cmd_live(args) -> int:
 def cmd_replay(args) -> int:
     """Re-render a recorded .nentraj trajectory to a GIF — checkpoint/replay
     closes the loop the reference's never-wired capture path left open."""
-    import imageio.v2 as imageio
     import numpy as np
 
     from .utils import native
+    from .viz import require
     from .viz import frame as frame_lib
 
     ts, pos, vel = native.read_trajectory(args.trajectory)
@@ -772,7 +771,9 @@ def cmd_replay(args) -> int:
     import os
 
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-    imageio.mimsave(args.out, frames, duration=1000.0 / args.fps, loop=0)
+    require("imageio.v2", "imageio").mimsave(
+        args.out, frames, duration=1000.0 / args.fps, loop=0
+    )
     print(f"replayed {len(ts)} frames ({len(frames)} rendered) -> {args.out}")
     return 0
 
@@ -909,8 +910,7 @@ def main(argv=None) -> int:
     p.add_argument(
         "--critic", choices=["agent", "central"], default="agent",
         help="ppo/ac value baseline: per-agent V(obs_i) or the centralized "
-        "pooled V(s) (MAPPO-style, for team/shared rewards; at 2,048-env "
-        "scale: ~13%% lower held-out value MSE — DESIGN.md §5)",
+        "pooled V(s) (MAPPO-style, for team/shared rewards)",
     )
     p.add_argument("--population", type=int, default=8, help="ES antithetic pairs")
     p.add_argument("--envs", type=int, default=64)
@@ -1042,7 +1042,7 @@ def main(argv=None) -> int:
     )
     p.add_argument(
         "--platforms", default="",
-        help="comma-separated lowering targets, e.g. cpu,tpu (dense-routed "
+        help="comma-separated lowering targets, e.g. cpu,cuda (dense-routed "
         "envs export portably; default: current backend)",
     )
     p.add_argument("--out", default="policy_step.nxs")

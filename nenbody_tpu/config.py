@@ -103,7 +103,7 @@ class VisionConfig:
     are ~unit-radius triangles (src/main.rs:130-139) shaded by a skin
     texture darkened by a squared radial vignette (shaders/scene.frag:15-16).
 
-    The TPU build replaces the rasterizer with an analytic splat: agent j
+    This build replaces the rasterizer with an analytic splat: agent j
     projects to a pixel interval on agent i's line; per pixel the nearest
     agent wins the depth test and is shaded with the same squared-radial
     vignette profile over the sprite footprint, attenuated so intensity is
@@ -180,7 +180,7 @@ class SimConfig:
     controller: which physics update runs each step (the reference picks by
                 code edit at src/main.rs:925; boids is the active one)
     backend:    force/vision compute path — "dense" (pure jnp O(N^2), the
-                oracle), "pallas" (tiled TPU kernels), "ring" (shard_map +
+                oracle), "pallas" (tiled GPU kernels), "ring" (shard_map +
                 ppermute over an agent-sharded mesh), "gspmd"
                 (compiler-partitioned dense via sharding annotations), or
                 "auto".

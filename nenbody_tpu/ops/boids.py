@@ -1,9 +1,11 @@
-"""Tiled flocking (boids) kernel.
+"""Tiled flocking (boids) kernel (Pallas, Triton route).
 
-Same blockwise i-resident / j-streamed structure as pairwise.py, fusing the
+Same i-resident / j-streamed structure as pairwise.py, fusing the
 reference's THREE separate O(N^2) folds (cohesion / separation / alignment,
 src/main.rs:465-504) into one pass over each (TI, TJ) tile — the positions
-and velocities are read once per tile instead of three times.
+and velocities are read once per tile instead of three times. The kernel
+emits the additive rule partials; the O(N) finish (guarded means, weighted
+sum) is physics.dense.boids_finalize in XLA.
 
 Reference semantics preserved exactly (see config.BoidsConfig):
   - cohesion mask:   |x_j - x_i|^2 < cohesion_dist_sq  (squared threshold)
@@ -21,168 +23,59 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..config import BoidsConfig
-from .common import col, fit_tile, interpret_mode, pad_axis, round_up, row
+from ..physics import dense
+from .common import all_pairs_call
 
-TILE_I = 256
-TILE_J = 1024
+TILE_I = 32
+TILE_J = 32
 
 
-def _boids_kernel(
-    pxc_ref, pyc_ref, vxc_ref, vyc_ref,  # [TI, 1] i-block pos/vel
-    pxr_ref, pyr_ref, vxr_ref, vyr_ref,  # [1, N_pad] streamed rows
-    m_ref,  # [1, N_pad] padding mask
-    nvx_ref, nvy_ref,  # [TI, 1] out: replacement velocity (pre-clamp)
-    *,
-    cfg: BoidsConfig,
-    tj: int,
-    skip_alignment: bool = False,
-):
-    ti = pxc_ref.shape[0]
-    xi, yi = pxc_ref[:], pyc_ref[:]
-    vxi, vyi = vxc_ref[:], vyc_ref[:]
-    n_pad = pxr_ref.shape[1]
-    num_chunks = n_pad // tj
-    i_base = pl.program_id(0) * ti
-    i_idx = i_base + jax.lax.broadcasted_iota(jnp.int32, (ti, 1), 0)
+def _boids_body(xi, xj, i_idx, j_idx, valid, *, cfg: BoidsConfig,
+                exclude_diagonal: bool, alignment: bool):
+    (px_i, py_i, vx_i, vy_i), (px_j, py_j, vx_j, vy_j) = xi, xj
+    keep = valid
+    if exclude_diagonal:
+        keep = keep & (i_idx != j_idx)
 
+    dx = px_j - px_i  # (TI, TJ)
+    dy = py_j - py_i
+    d2 = dx * dx + dy * dy
+
+    # Rule 1 — cohesion: neighbor positions + count.
+    w1 = jnp.where((d2 < cfg.cohesion_dist_sq) & keep, 1.0, 0.0)
+    # Rule 2 — separation: -(x_j - x_i) within radius.
     r2_sq = cfg.separation_dist * cfg.separation_dist
-    r3_sq = cfg.alignment_dist * cfg.alignment_dist
+    w2 = jnp.where((d2 < r2_sq) & keep, -1.0, 0.0)
+    terms = [w1 * px_j, w1 * py_j, w1, w2 * dx, w2 * dy]
+    if alignment:
+        # Rule 3 — alignment: velocities within VELOCITY-space radius.
+        dvx = vx_j - vx_i
+        dvy = vy_j - vy_i
+        r3_sq = cfg.alignment_dist * cfg.alignment_dist
+        w3 = jnp.where((dvx * dvx + dvy * dvy < r3_sq) & keep, 1.0, 0.0)
+        terms += [w3 * vx_j, w3 * vy_j, w3]
+    return terms
 
-    def body(k, acc):
-        s1x, s1y, c1, rx, ry, s3x, s3y, c3 = acc
-        j0 = pl.multiple_of(k * tj, tj)
-        xj = pxr_ref[:, pl.ds(j0, tj)]  # (1, TJ)
-        yj = pyr_ref[:, pl.ds(j0, tj)]
-        mj = m_ref[:, pl.ds(j0, tj)] > 0.0
-        j_idx = j0 + jax.lax.broadcasted_iota(jnp.int32, (ti, tj), 1)
-        not_self = (i_idx != j_idx) & mj  # (TI, TJ)
 
-        dx = xj - xi
-        dy = yj - yi
-        d2 = dx * dx + dy * dy
-
-        # Rule 1 — cohesion: accumulate neighbor positions + count.
-        m1 = (d2 < cfg.cohesion_dist_sq) & not_self
-        w1 = m1.astype(jnp.float32)
-        s1x = s1x + jnp.sum(w1 * xj, axis=1, keepdims=True)
-        s1y = s1y + jnp.sum(w1 * yj, axis=1, keepdims=True)
-        c1 = c1 + jnp.sum(w1, axis=1, keepdims=True)
-
-        # Rule 2 — separation: -(x_j - x_i) within radius.
-        m2 = (d2 < r2_sq) & not_self
-        w2 = m2.astype(jnp.float32)
-        rx = rx - jnp.sum(w2 * dx, axis=1, keepdims=True)
-        ry = ry - jnp.sum(w2 * dy, axis=1, keepdims=True)
-
-        if not skip_alignment:
-            # Rule 3 — alignment: velocities within VELOCITY-space radius.
-            vxj = vxr_ref[:, pl.ds(j0, tj)]
-            vyj = vyr_ref[:, pl.ds(j0, tj)]
-            dvx = vxj - vxi
-            dvy = vyj - vyi
-            vd2 = dvx * dvx + dvy * dvy
-            m3 = (vd2 < r3_sq) & not_self
-            w3 = m3.astype(jnp.float32)
-            s3x = s3x + jnp.sum(w3 * vxj, axis=1, keepdims=True)
-            s3y = s3y + jnp.sum(w3 * vyj, axis=1, keepdims=True)
-            c3 = c3 + jnp.sum(w3, axis=1, keepdims=True)
-
-        return s1x, s1y, c1, rx, ry, s3x, s3y, c3
-
-    zero = jnp.zeros((ti, 1), jnp.float32)
-    s1x, s1y, c1, rx, ry, s3x, s3y, c3 = jax.lax.fori_loop(
-        0, num_chunks, body, (zero,) * 8
+def _partials(pos_i, vel_i, pos_j, vel_j, cfg, exclude_diagonal, alignment,
+              ti, tj):
+    body = functools.partial(
+        _boids_body, cfg=cfg, exclude_diagonal=exclude_diagonal,
+        alignment=alignment,
     )
-    if skip_alignment:
-        # rule 3 is added outside the kernel (global O(N) mean); report
-        # neutral partials: zero sum, zero count.
-        s3x = s3y = c3 = zero
-
-    # Guarded means (reference divides only when count > 0, main.rs:506-512).
-    inv1 = jnp.where(c1 > 0, 1.0 / jnp.maximum(c1, 1.0), 0.0)
-    inv3 = jnp.where(c3 > 0, 1.0 / jnp.maximum(c3, 1.0), 0.0)
-    cx, cy = s1x * inv1, s1y * inv1
-    ax, ay = s3x * inv3, s3y * inv3
-
-    nvx_ref[:] = (
-        cx * cfg.cohesion_scale + rx * cfg.separation_scale + ax * cfg.alignment_scale
+    cols = lambda p, v: [p[:, 0], p[:, 1], v[:, 0], v[:, 1]]
+    outs = all_pairs_call(
+        body, cols(pos_i, vel_i), cols(pos_j, vel_j), 8 if alignment else 5,
+        ti=ti, tj=tj, name="boids_partials",
     )
-    nvy_ref[:] = (
-        cy * cfg.cohesion_scale + ry * cfg.separation_scale + ay * cfg.alignment_scale
-    )
-
-
-def _boids_partials_kernel(
-    pxc_ref, pyc_ref, vxc_ref, vyc_ref,  # [TI, 1] i-block pos/vel
-    pxr_ref, pyr_ref, vxr_ref, vyr_ref,  # [1, M_pad] streamed j rows
-    m_ref,  # [1, M_pad] padding mask
-    s1x_ref, s1y_ref, c1_ref, rx_ref, ry_ref, s3x_ref, s3y_ref, c3_ref,
-    *,
-    cfg: BoidsConfig,
-    tj: int,
-    exclude_diagonal: bool,
-):
-    """Cross-block flocking partials: the j-set's rule accumulators against
-    the i-set, additive across blocks — the ring backend's per-hop primitive
-    (mirrors physics.dense.boids_partials_cross). `exclude_diagonal` masks
-    aligned i==j pairs; only meaningful when the blocks alias (ring hop 0).
-    """
-    ti = pxc_ref.shape[0]
-    xi, yi = pxc_ref[:], pyc_ref[:]
-    vxi, vyi = vxc_ref[:], vyc_ref[:]
-    m_pad = pxr_ref.shape[1]
-    num_chunks = m_pad // tj
-    i_base = pl.program_id(0) * ti
-    i_idx = i_base + jax.lax.broadcasted_iota(jnp.int32, (ti, 1), 0)
-
-    r2_sq = cfg.separation_dist * cfg.separation_dist
-    r3_sq = cfg.alignment_dist * cfg.alignment_dist
-
-    def body(k, acc):
-        s1x, s1y, c1, rx, ry, s3x, s3y, c3 = acc
-        j0 = pl.multiple_of(k * tj, tj)
-        xj = pxr_ref[:, pl.ds(j0, tj)]
-        yj = pyr_ref[:, pl.ds(j0, tj)]
-        vxj = vxr_ref[:, pl.ds(j0, tj)]
-        vyj = vyr_ref[:, pl.ds(j0, tj)]
-        mj = m_ref[:, pl.ds(j0, tj)] > 0.0
-        keep = mj
-        if exclude_diagonal:
-            j_idx = j0 + jax.lax.broadcasted_iota(jnp.int32, (ti, tj), 1)
-            keep = (i_idx != j_idx) & mj
-
-        dx = xj - xi
-        dy = yj - yi
-        d2 = dx * dx + dy * dy
-
-        w1 = ((d2 < cfg.cohesion_dist_sq) & keep).astype(jnp.float32)
-        s1x = s1x + jnp.sum(w1 * xj, axis=1, keepdims=True)
-        s1y = s1y + jnp.sum(w1 * yj, axis=1, keepdims=True)
-        c1 = c1 + jnp.sum(w1, axis=1, keepdims=True)
-
-        w2 = ((d2 < r2_sq) & keep).astype(jnp.float32)
-        rx = rx - jnp.sum(w2 * dx, axis=1, keepdims=True)
-        ry = ry - jnp.sum(w2 * dy, axis=1, keepdims=True)
-
-        dvx = vxj - vxi
-        dvy = vyj - vyi
-        vd2 = dvx * dvx + dvy * dvy
-        w3 = ((vd2 < r3_sq) & keep).astype(jnp.float32)
-        s3x = s3x + jnp.sum(w3 * vxj, axis=1, keepdims=True)
-        s3y = s3y + jnp.sum(w3 * vyj, axis=1, keepdims=True)
-        c3 = c3 + jnp.sum(w3, axis=1, keepdims=True)
-        return s1x, s1y, c1, rx, ry, s3x, s3y, c3
-
-    zero = jnp.zeros((ti, 1), jnp.float32)
-    outs = jax.lax.fori_loop(0, num_chunks, body, (zero,) * 8)
-    for ref, val in zip(
-        (s1x_ref, s1y_ref, c1_ref, rx_ref, ry_ref, s3x_ref, s3y_ref, c3_ref), outs
-    ):
-        ref[:] = val
+    sum1 = jnp.stack(outs[0:2], axis=1)
+    repel = jnp.stack(outs[3:5], axis=1)
+    if alignment:
+        return sum1, outs[2], repel, jnp.stack(outs[5:7], axis=1), outs[7]
+    zero = jnp.zeros_like(outs[2])
+    return sum1, outs[2], repel, jnp.zeros_like(sum1), zero
 
 
 @functools.partial(
@@ -198,54 +91,15 @@ def boids_partials_tiled(
     ti: int = TILE_I,
     tj: int = TILE_J,
 ):
-    """Pallas counterpart of physics.dense.boids_partials_cross.
+    """Pallas counterpart of physics.dense.boids_partials_cross: the j-set's
+    rule accumulators against the i-set, additive across blocks (the ring
+    backend's per-hop primitive). `exclude_diagonal` masks aligned i==j
+    pairs; only meaningful when the blocks alias (ring hop 0).
 
     Returns (sum1 [N,2], cnt1 [N], repel [N,2], sum3 [N,2], cnt3 [N]).
     """
-    n = pos_i.shape[0]
-    m = pos_j.shape[0]
-    ti = fit_tile(ti, n, 8)
-    tj = fit_tile(tj, m, 128)
-    n_pad = round_up(n, ti)
-    m_pad = round_up(m, tj)
-
-    pxi = pad_axis(pos_i[:, 0], n_pad)
-    pyi = pad_axis(pos_i[:, 1], n_pad)
-    vxi = pad_axis(vel_i[:, 0], n_pad)
-    vyi = pad_axis(vel_i[:, 1], n_pad)
-    pxj = pad_axis(pos_j[:, 0], m_pad)
-    pyj = pad_axis(pos_j[:, 1], m_pad)
-    vxj = pad_axis(vel_j[:, 0], m_pad)
-    vyj = pad_axis(vel_j[:, 1], m_pad)
-    mask = pad_axis(jnp.ones((m,), jnp.float32), m_pad)
-
-    grid = (n_pad // ti,)
-    kernel = functools.partial(
-        _boids_partials_kernel, cfg=cfg, tj=tj, exclude_diagonal=exclude_diagonal
-    )
-    cspec = lambda: pl.BlockSpec((ti, 1), lambda i: (i, 0), memory_space=pltpu.VMEM)
-    rspec = lambda: pl.BlockSpec((1, m_pad), lambda i: (0, 0), memory_space=pltpu.VMEM)
-    outs = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[cspec()] * 4 + [rspec()] * 5,
-        out_specs=[cspec()] * 8,
-        out_shape=[jax.ShapeDtypeStruct((n_pad, 1), jnp.float32)] * 8,
-        cost_estimate=pl.CostEstimate(
-            flops=24 * n_pad * m_pad,
-            bytes_accessed=(4 * n_pad + 5 * m_pad + 8 * n_pad) * 4,
-            transcendentals=0,
-        ),
-        interpret=interpret_mode(),
-    )(
-        col(pxi), col(pyi), col(vxi), col(vyi),
-        row(pxj), row(pyj), row(vxj), row(vyj), row(mask),
-    )
-    s1x, s1y, c1, rx, ry, s3x, s3y, c3 = [o[:n] for o in outs]
-    sum1 = jnp.concatenate([s1x, s1y], axis=1)
-    repel = jnp.concatenate([rx, ry], axis=1)
-    sum3 = jnp.concatenate([s3x, s3y], axis=1)
-    return sum1, c1[:, 0], repel, sum3, c3[:, 0]
+    return _partials(pos_i, vel_i, pos_j, vel_j, cfg, exclude_diagonal,
+                     True, ti, tj)
 
 
 @functools.partial(jax.jit, static_argnames=("cfg", "ti", "tj"))
@@ -258,46 +112,13 @@ def boids_velocity_tiled(
 ) -> jax.Array:
     """Pallas counterpart of physics.dense.boids_accels: the replacement
     velocity before the speed clamp. pos, vel: [N, 2] -> [N, 2]."""
+    parts = _partials(pos, vel, pos, vel, cfg, True,
+                      not cfg.global_alignment, ti, tj)
+    nv = dense.boids_finalize(parts, cfg)
     n = pos.shape[0]
-    ti = fit_tile(ti, n, 8)
-    tj = fit_tile(tj, n, 128)
-    n_pad = round_up(n, max(ti, tj))
-
-    px = pad_axis(pos[:, 0], n_pad)
-    py = pad_axis(pos[:, 1], n_pad)
-    vx = pad_axis(vel[:, 0], n_pad)
-    vy = pad_axis(vel[:, 1], n_pad)
-    mask = pad_axis(jnp.ones((n,), jnp.float32), n_pad)
-
-    grid = (n_pad // ti,)
-    kernel = functools.partial(
-        _boids_kernel, cfg=cfg, tj=tj, skip_alignment=cfg.global_alignment
-    )
-    cspec = lambda: pl.BlockSpec((ti, 1), lambda i: (i, 0), memory_space=pltpu.VMEM)
-    rspec = lambda: pl.BlockSpec((1, n_pad), lambda i: (0, 0), memory_space=pltpu.VMEM)
-    nvx, nvy = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[cspec(), cspec(), cspec(), cspec(), rspec(), rspec(), rspec(), rspec(), rspec()],
-        out_specs=[cspec(), cspec()],
-        out_shape=[
-            jax.ShapeDtypeStruct((n_pad, 1), jnp.float32),
-            jax.ShapeDtypeStruct((n_pad, 1), jnp.float32),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=24 * n_pad * n_pad,
-            bytes_accessed=9 * n_pad * 4 + 2 * n_pad * 4,
-            transcendentals=0,
-        ),
-        interpret=interpret_mode(),
-    )(col(px), col(py), col(vx), col(vy), row(px), row(py), row(vx), row(vy), row(mask))
-
-    nv = jnp.concatenate([nvx, nvy], axis=1)[:n]
-    if cfg.global_alignment:
+    if cfg.global_alignment and n > 1:
         # rule 3 as the exact global mean: sum_{j!=i} v_j / (n-1); identical
         # to the masked fold whenever all speeds <= alignment_dist/2.
         total = jnp.sum(vel, axis=0, keepdims=True)
-        if n > 1:
-            vmatch = (total - vel) / (n - 1)
-            nv = nv + cfg.alignment_scale * vmatch
+        nv = nv + cfg.alignment_scale * (total - vel) / (n - 1)
     return nv

@@ -1,22 +1,15 @@
-"""Tiled all-pairs gravity force kernel.
+"""Tiled all-pairs gravity force kernel (Pallas, Triton route).
 
-The blockwise structure SURVEY.md §5.7 calls for: an i-block of agents stays
-resident in VMEM while j-blocks of the full position row stream through the
-VPU as (TI, TJ) outer tiles — the flash-attention access pattern applied to
-the reference's O(N^2) gravity fold (src/main.rs:425-432):
+The shared-tile N-body layout: one program owns a block of TI agents and
+streams the whole position set past it in TJ-tiles, evaluating the
+reference's O(N^2) gravity fold (src/main.rs:425-432) on (TI, TJ) tiles
 
     g_i = sum_j (x_j - x_i) * g / (|x_j - x_i|^2 + bias)
 
-Self-pair included exactly as in the reference: dx = dy = 0 makes the
-numerator zero while `bias` keeps 1/d2 finite, so no special-casing. Padding
-lanes are killed through the `mask` row (the pad entries of which are 0), so
-arbitrary N works without perturbing the physics.
-
-Layouts: positions enter twice — as columns [N_pad, 1] for the resident
-i-block (sublane-major) and as rows [1, N_pad] for the streamed j-blocks
-(lane-major) — because a (TI,1)x(1,TJ) broadcast is free on the VPU while an
-in-kernel transpose is not. At N=65,536 the full rows are 256 KB each and
-live comfortably in VMEM for the whole grid sweep.
+with fp32 accumulators in registers (common.all_pairs_call). Self-pair
+included exactly as in the reference: dx = dy = 0 makes the numerator zero
+while `bias` keeps 1/d2 finite, so no special-casing. Padded j lanes are
+masked by index, so arbitrary N works without perturbing the physics.
 """
 
 from __future__ import annotations
@@ -25,59 +18,38 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 from ..config import GravityConfig
-from .common import col, fit_tile, interpret_mode, pad_axis, round_up, row
+from .common import all_pairs_call, interpret_mode
 
-# Default tile sizes; (TI, TJ) temporaries are TI*TJ*4 bytes each, and the
-# kernel keeps ~3 of them live -> 512x2048 = 4 MB/temp, inside the ~16
-# MB/core VMEM budget with room for the resident rows. Swept on v5e:
-# (512, 2048) is the fastest of the feasible tilings.
-TILE_I = 512
-TILE_J = 2048
+TILE_I = 64
+TILE_J = 64
 
 
-def _gravity_kernel(
-    xc_ref,  # [TI, 1] i-block x
-    yc_ref,  # [TI, 1] i-block y
-    xr_ref,  # [1, N_pad] all x (lane-major)
-    yr_ref,  # [1, N_pad] all y
-    m_ref,  # [1, N_pad] 1.0 for real agents, 0.0 for padding
-    gx_ref,  # [TI, 1] out: accumulated force x (pre-G)
-    gy_ref,  # [TI, 1] out: accumulated force y
-    *,
-    bias: float,
-    tj: int,
-    approx: bool,
-):
-    xi = xc_ref[:]  # (TI, 1)
-    yi = yc_ref[:]
-    n_pad = xr_ref.shape[1]
-    num_chunks = n_pad // tj
+def _rcp_approx(x):
+    """The card's approximate reciprocal (PTX rcp.approx.ftz.f32, at most
+    one ulp from 1/x for normal inputs). The interpreter has no inline
+    assembly, so interpret mode divides exactly."""
+    if interpret_mode():
+        return 1.0 / x
+    return plt.elementwise_inline_asm(
+        "rcp.approx.ftz.f32 $0, $1;",
+        args=[x],
+        constraints="=r,r",
+        pack=1,
+        result_shape_dtypes=[jax.ShapeDtypeStruct(x.shape, x.dtype)],
+    )[0]
 
-    def body(k, acc):
-        gx, gy = acc
-        j0 = pl.multiple_of(k * tj, tj)
-        xj = xr_ref[:, pl.ds(j0, tj)]  # (1, TJ)
-        yj = yr_ref[:, pl.ds(j0, tj)]
-        mj = m_ref[:, pl.ds(j0, tj)]
-        dx = xj - xi  # (TI, TJ)
-        dy = yj - yi
-        d2 = dx * dx + dy * dy + bias
-        if approx:  # ~2^-12 relative error, ~+40% throughput
-            w = mj * pl.reciprocal(d2, approx=True)
-        else:
-            w = mj / d2  # masked inverse squared distance, exact fp32
-        gx = gx + jnp.sum(dx * w, axis=1, keepdims=True)
-        gy = gy + jnp.sum(dy * w, axis=1, keepdims=True)
-        return gx, gy
 
-    zero = jnp.zeros((xi.shape[0], 1), jnp.float32)
-    gx, gy = jax.lax.fori_loop(0, num_chunks, body, (zero, zero))
-    gx_ref[:] = gx
-    gy_ref[:] = gy
+def _gravity_body(xi, xj, i_idx, j_idx, valid, *, bias: float, approx: bool):
+    (x_i, y_i), (x_j, y_j) = xi, xj
+    dx = x_j - x_i  # (TI, TJ)
+    dy = y_j - y_i
+    d2 = dx * dx + dy * dy + bias
+    inv = _rcp_approx(d2) if approx else 1.0 / d2
+    w = jnp.where(valid, inv, 0.0)
+    return dx * w, dy * w
 
 
 @functools.partial(jax.jit, static_argnames=("cfg", "ti", "tj"))
@@ -95,51 +67,14 @@ def gravity_forces_tiled(
     self-interaction.
     """
     src = pos if pos_j is None else pos_j
-    n = pos.shape[0]
-    m = src.shape[0]
-    ti = fit_tile(ti, n, 8)
-    tj = fit_tile(tj, m, 128)
-    n_pad = round_up(n, ti)
-    m_pad = round_up(m, tj)
-    xi = pad_axis(pos[:, 0], n_pad)
-    yi = pad_axis(pos[:, 1], n_pad)
-    xj = pad_axis(src[:, 0], m_pad)
-    yj = pad_axis(src[:, 1], m_pad)
-    mask = pad_axis(jnp.ones((m,), jnp.float32), m_pad)
-
-    grid = (n_pad // ti,)
-    kernel = functools.partial(
-        _gravity_kernel, bias=cfg.bias, tj=tj, approx=cfg.approx_reciprocal
+    body = functools.partial(
+        _gravity_body, bias=cfg.bias, approx=cfg.approx_reciprocal
     )
-    flops_per_pair = 8
-    gx, gy = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((ti, 1), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((ti, 1), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, m_pad), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, m_pad), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, m_pad), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((ti, 1), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((ti, 1), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((n_pad, 1), jnp.float32),
-            jax.ShapeDtypeStruct((n_pad, 1), jnp.float32),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=flops_per_pair * n_pad * m_pad,
-            bytes_accessed=(2 * n_pad + 3 * m_pad + 2 * n_pad) * 4,
-            transcendentals=0,
-        ),
-        interpret=interpret_mode(),
-    )(col(xi), col(yi), row(xj), row(yj), row(mask))
-
-    g = jnp.concatenate([gx, gy], axis=1)[:n]
-    return cfg.g * g
+    gx, gy = all_pairs_call(
+        body, [pos[:, 0], pos[:, 1]], [src[:, 0], src[:, 1]], 2,
+        ti=ti, tj=tj, name="gravity_forces",
+    )
+    return cfg.g * jnp.stack([gx, gy], axis=1)
 
 
 # ---------------------------------------------------------------------------
@@ -154,49 +89,21 @@ def gravity_forces_tiled(
 #
 # The self-pair contributes exactly zero ((u_k - u_k) = 0, bias-finite d2),
 # mirroring the forward's self-pair story. This makes rollouts through the
-# Pallas path differentiable — trajectory optimization and analytic policy
+# kernel path differentiable — trajectory optimization and analytic policy
 # gradients — without falling back to the dense O(N^2)-memory jnp autodiff.
 
 
-def _gravity_vjp_kernel(
-    xc_ref, yc_ref, uxc_ref, uyc_ref,  # [TI, 1] k-block pos / cotangent
-    xr_ref, yr_ref, uxr_ref, uyr_ref,  # [1, N_pad] streamed j rows
-    m_ref,  # [1, N_pad] padding mask
-    ox_ref, oy_ref,  # [TI, 1] out: dL/dx_k (pre-G)
-    *,
-    bias: float,
-    tj: int,
-):
-    xk, yk = xc_ref[:], yc_ref[:]
-    uxk, uyk = uxc_ref[:], uyc_ref[:]
-    n_pad = xr_ref.shape[1]
-    num_chunks = n_pad // tj
-
-    def body(k, acc):
-        ox, oy = acc
-        j0 = pl.multiple_of(k * tj, tj)
-        xj = xr_ref[:, pl.ds(j0, tj)]
-        yj = yr_ref[:, pl.ds(j0, tj)]
-        uxj = uxr_ref[:, pl.ds(j0, tj)]
-        uyj = uyr_ref[:, pl.ds(j0, tj)]
-        mj = m_ref[:, pl.ds(j0, tj)]
-
-        rx = xk - xj  # r = x_k - x_j, (TI, TJ)
-        ry = yk - yj
-        d2 = rx * rx + ry * ry + bias
-        sux = uxj - uxk  # u_j - u_k
-        suy = uyj - uyk
-        inv = mj / d2
-        inv2 = inv / d2
-        dot2 = 2.0 * (sux * rx + suy * ry) * inv2
-        ox = ox + jnp.sum(sux * inv - rx * dot2, axis=1, keepdims=True)
-        oy = oy + jnp.sum(suy * inv - ry * dot2, axis=1, keepdims=True)
-        return ox, oy
-
-    zero = jnp.zeros((xk.shape[0], 1), jnp.float32)
-    ox, oy = jax.lax.fori_loop(0, num_chunks, body, (zero, zero))
-    ox_ref[:] = ox
-    oy_ref[:] = oy
+def _gravity_vjp_body(xk, xj, i_idx, j_idx, valid, *, bias: float):
+    (x_k, y_k, ux_k, uy_k), (x_j, y_j, ux_j, uy_j) = xk, xj
+    rx = x_k - x_j  # r = x_k - x_j, (TI, TJ)
+    ry = y_k - y_j
+    d2 = rx * rx + ry * ry + bias
+    sux = ux_j - ux_k  # u_j - u_k
+    suy = uy_j - uy_k
+    inv = jnp.where(valid, 1.0 / d2, 0.0)
+    inv2 = inv / d2
+    dot2 = 2.0 * (sux * rx + suy * ry) * inv2
+    return sux * inv - rx * dot2, suy * inv - ry * dot2
 
 
 @functools.partial(jax.jit, static_argnames=("cfg", "ti", "tj"))
@@ -208,43 +115,18 @@ def gravity_vjp_tiled(
     tj: int = TILE_J,
 ) -> jax.Array:
     """Pullback of gravity_forces_tiled: cotangent u [N, 2] -> dL/dpos [N, 2]."""
-    n = pos.shape[0]
-    ti = fit_tile(ti, n, 8)
-    tj = fit_tile(tj, n, 128)
-    n_pad = round_up(n, max(ti, tj))
-    x = pad_axis(pos[:, 0], n_pad)
-    y = pad_axis(pos[:, 1], n_pad)
-    ux = pad_axis(u[:, 0], n_pad)
-    uy = pad_axis(u[:, 1], n_pad)
-    mask = pad_axis(jnp.ones((n,), jnp.float32), n_pad)
-
-    grid = (n_pad // ti,)
-    kernel = functools.partial(_gravity_vjp_kernel, bias=cfg.bias, tj=tj)
-    cspec = lambda: pl.BlockSpec((ti, 1), lambda i: (i, 0), memory_space=pltpu.VMEM)
-    rspec = lambda: pl.BlockSpec((1, n_pad), lambda i: (0, 0), memory_space=pltpu.VMEM)
-    ox, oy = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[cspec()] * 4 + [rspec()] * 5,
-        out_specs=[cspec(), cspec()],
-        out_shape=[jax.ShapeDtypeStruct((n_pad, 1), jnp.float32)] * 2,
-        cost_estimate=pl.CostEstimate(
-            flops=20 * n_pad * n_pad,
-            bytes_accessed=(4 * n_pad + 5 * n_pad + 2 * n_pad) * 4,
-            transcendentals=0,
-        ),
-        interpret=interpret_mode(),
-    )(
-        col(x), col(y), col(ux), col(uy),
-        row(x), row(y), row(ux), row(uy), row(mask),
+    cols = [pos[:, 0], pos[:, 1], u[:, 0], u[:, 1]]
+    body = functools.partial(_gravity_vjp_body, bias=cfg.bias)
+    ox, oy = all_pairs_call(
+        body, cols, cols, 2, ti=ti, tj=tj, name="gravity_vjp"
     )
-    return cfg.g * jnp.concatenate([ox, oy], axis=1)[:n]
+    return cfg.g * jnp.stack([ox, oy], axis=1)
 
 
 @functools.partial(jax.custom_vjp, nondiff_argnums=(1,))
 def gravity_forces_diff(pos: jax.Array, cfg: GravityConfig) -> jax.Array:
     """gravity_forces_tiled with a tiled custom VJP — differentiate rollouts
-    through the Pallas path (jax.grad / jax.vjp work)."""
+    through the kernel path (jax.grad / jax.vjp work)."""
     return gravity_forces_tiled(pos, cfg)
 
 

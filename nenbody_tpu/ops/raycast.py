@@ -1,17 +1,18 @@
-"""Pallas 1D raycast/rasterize kernel: the TPU eye pipeline.
+"""Disc raycast kernel: the eye pipeline (Pallas, Triton route).
 
 Replaces the reference's N-render-passes vision path (one Vulkan pass per
 agent layer, rayon-parallel command recording, src/main.rs:584-647) with a
-single grid launch: each program renders a block of eyes; for each eye, all
-target positions stream through VMEM in (TJ, W) tiles where the pixel axis
-rides the 128-wide lanes. Per tile the kernel evaluates splat coverage, a
-depth test (nearest agent wins, as the rasterizer's depth attachment), and
-the squared-radial vignette shade (shaders/scene.frag:15-16).
+single grid launch: each program owns a (TE eyes, WB pixels) block of the
+output and walks every target once, keeping a per-pixel running minimum of
+depth — the rasterizer's depth attachment (nearest agent wins) — with the
+winner's payloads (splat offset, 1/du, albedo) carried by select. The shade
+(squared-radial vignette, shaders/scene.frag:15-16) is decoded once per
+pixel in the epilogue.
 
 Must match nenbody_tpu.vision.render (the jnp oracle) at fp32 tolerances —
-enforced by tests/test_kernels.py. Tie-break nuance: at EXACTLY equal
-depths the oracle takes the lowest agent index while this kernel takes the
-brightest shade within the chunk; real configurations never tie.
+enforced by tests/test_kernels.py. Targets are walked in index order with a
+strict depth test, so at exactly equal depths the lowest agent index wins,
+as in the oracle's argmin.
 """
 
 from __future__ import annotations
@@ -22,26 +23,37 @@ import math
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 from ..config import VisionConfig
 from ..state import SceneState
 from ..vision import camera
-from .common import (
-    col, fit_tile, interpret_mode, pad_axis, round_up, row, run_eyes_unrolled,
-)
+from .common import block, interpret_mode, pad_axis, round_up
 
-EYES_PER_PROGRAM = 8
-TILE_J = 512
+# eyes x pixels per program: one warp, eight per thread (measured fastest
+# on an H100 at the reference's 100 x 1,024 px, 4,096 x 256 px and 4,096
+# envs x 256 x 64 px — PERF.md)
+TILE = 256
+PIXEL_BLOCK = 128
+# targets per loop trip (statically unrolled): several independent target
+# loads in flight per trip instead of one
+UNROLL = 4
+
+
+def raycast_blocks(n: int, width: int) -> tuple[int, int]:
+    """(TE, WB): a pixel block of up to PIXEL_BLOCK pixels and as many eyes
+    as fill a TILE — 2 x 128 for 256- and 1,024-px rows, 4 x 64 for
+    64-px rows."""
+    wb = block(PIXEL_BLOCK, width, 16)
+    return block(TILE // wb, n, 1), wb
 
 
 def _decode_winner(best_d, best_o2, best_inv, cfg: VisionConfig, best_alb=None):
-    """Per-pixel epilogue shared by both kernels: reconstruct the winning
-    fragment's vignette shade from its squared splat offset (and, in AA mode,
-    its projected splat scale). Runs on O(W) elements — the O(N*W) inner
-    loops only track (depth, off^2[, 1/du[, albedo]]) via select+min, which
-    is ~half the ops of computing the shade for every (target, pixel) pair.
-    best_alb carries the winner's per-agent albedo when enabled."""
+    """Per-pixel epilogue: reconstruct the winning fragment's vignette shade
+    from its squared splat offset (and, in AA mode, its projected splat
+    scale). Runs on O(W) elements — the O(N*W) inner loop only tracks
+    (depth, off^2[, 1/du[, albedo]]) via select. best_alb carries the
+    winner's per-agent albedo when enabled."""
     hit = best_d < cfg.far
     oc2 = jnp.minimum(best_o2, 1.0)  # clip(off,-1,1)^2
     alb = cfg.sprite_albedo if best_alb is None else best_alb
@@ -50,55 +62,35 @@ def _decode_winner(best_d, best_o2, best_inv, cfg: VisionConfig, best_alb=None):
         # exact 1D box-filter edge coverage: covf = clip((1-|o|)*s_cov + .5)
         # with s_cov = (W/2)*du the splat half-width in pixels (best_inv=1/du)
         s_cov = (0.5 * cfg.width) / best_inv
-        covf = jnp.clip(
-            (1.0 - jnp.sqrt(best_o2)) * s_cov + 0.5, 0.0, 1.0
-        )
+        covf = jnp.clip((1.0 - jnp.sqrt(best_o2)) * s_cov + 0.5, 0.0, 1.0)
         val = cfg.background + covf * (val - cfg.background)
     shade = jnp.where(hit, val, cfg.background)
     return shade, best_d
 
 
-def _unpack_rest(rest, has_alb: bool):
-    """Split a kernel's *rest into (alb_ref | None, output refs tuple)."""
-    if has_alb:
-        return rest[0], rest[1:]
-    return None, rest
-
-
-def _raw_outputs(best_d, best_off, best_inv, best_alb, cfg, has_alb):
-    """Raw winner-mode output tuple: (off, depth[, inv][, alb]) — consumed
-    by the XLA texture epilogue (_decode_textured)."""
-    outs = [best_off, best_d]
-    if cfg.antialias:
-        outs.append(best_inv)
-    if has_alb:
-        outs.append(best_alb)
-    return outs
-
-
 def _raycast_kernel(
-    ex_ref, ey_ref, dx_ref, dy_ref,  # [TE, 1] eye position / unit heading
-    tx_ref, ty_ref,  # [N_pad, 1] target positions (sublane-major)
-    m_ref,  # [N_pad, 1] target padding mask
-    *rest,  # [alb_ref ([N_pad, 1]) when has_alb,] output refs (see _unpack)
+    ex_ref, ey_ref, dx_ref, dy_ref,  # [TE] eye position / unit heading
+    tx_ref, ty_ref,  # [M_pad] target positions
+    *rest,  # [alb_ref ([M_pad]) when has_alb,] output refs [TE, WB]
     cfg: VisionConfig,
-    tj: int,
-    has_alb: bool = False,
-    raw: bool = False,
+    m: int,
+    has_alb: bool,
+    raw: bool,
 ):
-    alb_ref, out_refs = _unpack_rest(rest, has_alb)
-    te = ex_ref.shape[0]
-    wb = out_refs[0].shape[1]  # pixel-block width (grid dim 1 tiles the image)
-    n_pad = tx_ref.shape[0]
-    num_chunks = n_pad // tj
+    alb_ref, out_refs = (rest[0], rest[1:]) if has_alb else (None, rest)
+    wb = out_refs[0].shape[1]
+    m_pad = tx_ref.shape[0]
     t = math.tan(math.radians(cfg.hfov_deg) * 0.5)
 
-    # Pixel centers of THIS block in NDC, one per lane: (1, WB).
-    p0 = pl.program_id(1) * wb
+    px = ex_ref[...][:, None]  # (TE, 1)
+    py = ey_ref[...][:, None]
+    hx = dx_ref[...][:, None]
+    hy = dy_ref[...][:, None]
+    # pixel centers of THIS block in NDC, (1, WB)
     u_p = (
         2.0
         * (
-            p0
+            pl.program_id(1) * wb
             + jax.lax.broadcasted_iota(jnp.int32, (1, wb), 1).astype(jnp.float32)
             + 0.5
         )
@@ -106,285 +98,74 @@ def _raycast_kernel(
         - 1.0
     )
 
-    def eye_body(e, _):
-        # dynamic eye loop (not a Python unroll): Mosaic allocates the body's
-        # VMEM stack ONCE and reuses it per iteration — a te-wide unroll
-        # multiplies the scoped-vmem footprint past the 16 MB budget for the
-        # antialias+albedo variants
-        px, py = ex_ref[e, 0], ey_ref[e, 0]
-        hx, hy = dx_ref[e, 0], dy_ref[e, 0]
+    def target(j, carry):
+        best_d, best_o, best_inv, best_alb = carry
+        tx = tx_ref[pl.ds(j, 1)][None, :]  # (1, 1)
+        ty = ty_ref[pl.ds(j, 1)][None, :]
+        # per-target projection into every eye of the block, (TE, 1)
+        relx = tx - px
+        rely = ty - py
+        f = relx * hx + rely * hy  # view-space depth
+        l = relx * hy - rely * hx  # rel . right, right = (hy, -hx)
+        valid = (f > cfg.near) & (f < cfg.far) & (j < m)
+        fs = jnp.where(valid, f, 1.0)
+        u_c = l / (fs * t)
+        inv_du = fs * (t / cfg.sprite_radius)  # 1/du
+        if cfg.antialias:
+            hpp = 1.0 + fs * (t / (cfg.width * cfg.sprite_radius))
+            cov_th = jnp.where(valid, hpp * hpp, 0.0)  # (1+hp)^2
+        else:
+            cov_th = jnp.where(valid, 1.0, 0.0)
 
-        def body(k, carry, px=px, py=py, hx=hx, hy=hy):
-            best_d, best_o2, best_inv, best_alb = carry
-            j0 = pl.multiple_of(k * tj, tj)
-            tx = tx_ref[pl.ds(j0, tj), :]  # (TJ, 1)
-            ty = ty_ref[pl.ds(j0, tj), :]
-            mj = m_ref[pl.ds(j0, tj), :] > 0.0
+        # the O(TE*WB) core: a strict depth test against the running best
+        off = (u_p - u_c) * inv_du  # (TE, WB)
+        o2 = off * off
+        better = (o2 < cov_th) & (f < best_d)
+        best_d = jnp.where(better, f, best_d)
+        # raw mode keeps the SIGNED offset (the texture uv needs the sign)
+        best_o = jnp.where(better, off if raw else o2, best_o)
+        if cfg.antialias:
+            best_inv = jnp.where(better, inv_du, best_inv)
+        if has_alb:
+            alb = alb_ref[pl.ds(j, 1)][None, :]
+            best_alb = jnp.where(better, alb, best_alb)
+        return best_d, best_o, best_inv, best_alb
 
-            # per-target projection, (TJ, 1) columns (amortized over WB)
-            relx = tx - px
-            rely = ty - py
-            f = relx * hx + rely * hy  # view-space depth, (TJ, 1)
-            l = relx * hy - rely * hx  # rel . right, right = (hy, -hx)
-            valid = (f > cfg.near) & (f < cfg.far) & mj
-            fs = jnp.where(valid, f, 1.0)
-            inv = 1.0 / (fs * t)
-            u_c = l * inv
-            inv_du = fs * (t / cfg.sprite_radius)  # 1/du
-            if cfg.antialias:
-                hpp = 1.0 + fs * (t / (cfg.width * cfg.sprite_radius))
-                cov_th = jnp.where(valid, hpp * hpp, 0.0)  # (1+hp)^2
-            else:
-                cov_th = jnp.where(valid, 1.0, 0.0)
-            dsrc = jnp.where(valid, f, cfg.far)
+    def trip(g, carry):
+        for u in range(UNROLL):
+            carry = target(g * UNROLL + u, carry)
+        return carry
 
-            # the O(TJ*WB) core: 5 elementwise ops + 2 ops per select, with
-            # the winner decoded per-pixel in the epilogue
-            off = (u_p - u_c) * inv_du  # (TJ, WB)
-            o2 = off * off
-            dfield = jnp.where(o2 < cov_th, dsrc, cfg.far)
-            cmin = jnp.min(dfield, axis=0, keepdims=True)  # (1, WB)
-            win = dfield == cmin
-            # non-winner filler: AA-covered fragments can sit at o2 > 1
-            # (edge pixels within the half-pixel apron), so the filler must
-            # be +inf there; without AA every covered o2 < 1
-            filler = jnp.inf if cfg.antialias else 1.0
-            if raw:
-                # raw winner mode tracks the SIGNED offset (the texture uv
-                # needs the sign; o2 alone loses it); +inf filler always
-                o2m = jnp.min(
-                    jnp.where(win, off, jnp.inf), axis=0, keepdims=True
-                )
-            else:
-                o2m = jnp.min(
-                    jnp.where(win, o2, filler), axis=0, keepdims=True
-                )
-            if cfg.antialias:
-                invm = jnp.min(
-                    jnp.where(win, inv_du, jnp.inf), axis=0, keepdims=True
-                )
-            else:
-                invm = best_inv
-            if has_alb:
-                albj = alb_ref[pl.ds(j0, tj), :]
-                albm = jnp.min(
-                    jnp.where(win, albj, jnp.inf), axis=0, keepdims=True
-                )
-            else:
-                albm = best_alb
-
-            better = cmin < best_d
-            best_o2 = jnp.where(better, o2m, best_o2)
-            if cfg.antialias:
-                best_inv = jnp.where(better, invm, best_inv)
-            if has_alb:
-                best_alb = jnp.where(better, albm, best_alb)
-            best_d = jnp.minimum(best_d, cmin)
-            return best_d, best_o2, best_inv, best_alb
-
-        init = (
-            jnp.full((1, wb), cfg.far, jnp.float32),
-            jnp.ones((1, wb), jnp.float32),
-            jnp.ones((1, wb), jnp.float32),
-            jnp.full((1, wb), cfg.sprite_albedo, jnp.float32),
+    shape = (px.shape[0], wb)
+    init = (
+        jnp.full(shape, cfg.far, jnp.float32),
+        jnp.ones(shape, jnp.float32),
+        jnp.ones(shape, jnp.float32),
+        jnp.full(shape, cfg.sprite_albedo, jnp.float32),
+    )
+    best_d, best_o, best_inv, best_alb = jax.lax.fori_loop(
+        0, m_pad // UNROLL, trip, init
+    )
+    if raw:
+        outs = [best_o, best_d]
+        if cfg.antialias:
+            outs.append(best_inv)
+        if has_alb:
+            outs.append(best_alb)
+    else:
+        outs = _decode_winner(
+            best_d, best_o, best_inv, cfg, best_alb if has_alb else None
         )
-        best_d, best_o2, best_inv, best_alb = jax.lax.fori_loop(
-            0, num_chunks, body, init
-        )
-        if raw:
-            outs = _raw_outputs(best_d, best_o2, best_inv, best_alb, cfg, has_alb)
-            for ref, val in zip(out_refs, outs):
-                ref[pl.ds(e, 1), :] = val
-            return 0
-        shade, depth = _decode_winner(
-            best_d, best_o2, best_inv, cfg, best_alb if has_alb else None
-        )
-        out_refs[0][pl.ds(e, 1), :] = shade
-        out_refs[1][pl.ds(e, 1), :] = depth
-        return 0
-
-    # Unroll cap (see common.run_eyes_unrolled for the scoped-vmem
-    # rationale): the antialias+albedo/raw variants carry three select
-    # streams (o2/inv/albedo) and measured ~2x the stack of the others
-    # (observed OOMs at 16.25-17.6 MB), so they cap at 4 unrolled eyes
-    # (2 for the largest tiles); everything else is safe (validated on
-    # v5e) and faster up to 16. The wide-pixel-block streaming shapes
-    # (wb up to the full 1024-px row, few-target scenes) additionally
-    # bound unroll x live-(TJ, WB)-temporaries to ~6 MB.
-    heavy = (cfg.antialias and has_alb) or raw
-    cap = (2 if wb * tj >= (1 << 17) else 4) if heavy else 16
-    per_eye_bytes = wb * tj * 4 * (10 if heavy else 6)
-    cap = max(1, min(cap, (6 << 20) // max(per_eye_bytes, 1)))
-    run_eyes_unrolled(eye_body, te, cap)
-
-
-def _raster_kernel(
-    uc_ref, inv_ref, f_ref,  # [TE, N_pad] precomputed projections
-    *rest,  # [alb_ref ([1, N_pad]) when has_alb,] output refs (see _unpack)
-    cfg: VisionConfig,
-    tj: int,
-    has_alb: bool = False,
-    raw: bool = False,
-):
-    alb_ref, out_refs = _unpack_rest(rest, has_alb)
-    """Rasterize-only kernel over XLA-precomputed projections.
-
-    The streaming kernel (_raycast_kernel) computes per-target projections
-    in (TJ, 1) columns at 1/128 lane utilization — ~2/3 of its runtime for
-    narrow images. Here XLA precomputes u_c / 1/du / depth for all
-    (eye, target) pairs as fused, fully-vectorized [N_e, N_t] tensors
-    (invalid targets encoded as u_c = 1e9 so they never cover a pixel), and
-    the kernel only evaluates (WB, TJ) coverage/depth/shade tiles at full
-    lane packing. Used when the [N_e, N_t] tensors fit HBM comfortably.
-    """
-    te = uc_ref.shape[0]
-    wb = out_refs[0].shape[1]
-    n_pad = uc_ref.shape[1]
-    num_chunks = n_pad // tj
-
-    p0 = pl.program_id(1) * wb
-    u_p = (
-        2.0
-        * (
-            p0
-            + jax.lax.broadcasted_iota(jnp.int32, (wb, 1), 0).astype(jnp.float32)
-            + 0.5
-        )
-        / cfg.width
-        - 1.0
-    )  # (WB, 1): pixels on sublanes
-
-    def eye_body(e, _):
-        # dynamic eye loop — see _raycast_kernel for the scoped-vmem rationale.
-        # (A per-lane-running-best variant that deferred the cross-lane
-        # min-reductions to a single epilogue resolve was built and measured
-        # SLOWER on v5e across shapes — the extra elementwise select streams
-        # cost more than the per-chunk shuffles they saved; kept in git
-        # history.)
-        def body(k, carry, e=e):
-            best_d, best_o2, best_inv, best_alb = carry
-            j0 = pl.multiple_of(k * tj, tj)
-            uc = uc_ref[pl.ds(e, 1), pl.ds(j0, tj)]  # (1, TJ)
-            inv = inv_ref[pl.ds(e, 1), pl.ds(j0, tj)]
-            f = f_ref[pl.ds(e, 1), pl.ds(j0, tj)]
-
-            if cfg.antialias:
-                hpp = 1.0 + inv * (1.0 / cfg.width)  # (1, TJ): 1 + (1/W)/du
-                cov_th = hpp * hpp
-            else:
-                cov_th = 1.0
-
-            # O(WB*TJ) core (see _raycast_kernel for the op accounting)
-            off = (u_p - uc) * inv  # (WB, TJ)
-            o2 = off * off
-            dfield = jnp.where(o2 < cov_th, f, cfg.far)
-            cmin = jnp.min(dfield, axis=1, keepdims=True)  # (WB, 1)
-            win = dfield == cmin
-            filler = jnp.inf if cfg.antialias else 1.0
-            if raw:
-                # signed offset for the texture epilogue (see _raycast_kernel)
-                o2m = jnp.min(
-                    jnp.where(win, off, jnp.inf), axis=1, keepdims=True
-                )
-            else:
-                o2m = jnp.min(
-                    jnp.where(win, o2, filler), axis=1, keepdims=True
-                )
-            if cfg.antialias:
-                invm = jnp.min(
-                    jnp.where(win, inv, jnp.inf), axis=1, keepdims=True
-                )
-            else:
-                invm = best_inv
-            if has_alb:
-                albj = alb_ref[0:1, pl.ds(j0, tj)]
-                albm = jnp.min(
-                    jnp.where(win, albj, jnp.inf), axis=1, keepdims=True
-                )
-            else:
-                albm = best_alb
-
-            better = cmin < best_d
-            best_o2 = jnp.where(better, o2m, best_o2)
-            if cfg.antialias:
-                best_inv = jnp.where(better, invm, best_inv)
-            if has_alb:
-                best_alb = jnp.where(better, albm, best_alb)
-            best_d = jnp.minimum(best_d, cmin)
-            return best_d, best_o2, best_inv, best_alb
-
-        init = (
-            jnp.full((wb, 1), cfg.far, jnp.float32),
-            jnp.ones((wb, 1), jnp.float32),
-            jnp.ones((wb, 1), jnp.float32),
-            jnp.full((wb, 1), cfg.sprite_albedo, jnp.float32),
-        )
-        best_d, best_o2, best_inv, best_alb = jax.lax.fori_loop(
-            0, num_chunks, body, init
-        )
-        if raw:
-            outs = _raw_outputs(best_d, best_o2, best_inv, best_alb, cfg, has_alb)
-            for ref, val in zip(out_refs, outs):
-                ref[pl.ds(e, 1), :] = jnp.transpose(val)
-            return 0
-        shade, depth = _decode_winner(
-            best_d, best_o2, best_inv, cfg, best_alb if has_alb else None
-        )
-        out_refs[0][pl.ds(e, 1), :] = jnp.transpose(shade)
-        out_refs[1][pl.ds(e, 1), :] = jnp.transpose(depth)
-        return 0
-
-    # Unroll cap (see common.run_eyes_unrolled for the scoped-vmem
-    # rationale): the antialias+albedo/raw variants carry three select
-    # streams (o2/inv/albedo) and measured ~2x the stack of the others
-    # (observed OOMs at 16.25-17.6 MB), so they cap at 4 unrolled eyes
-    # (2 for the largest tiles); everything else is safe (validated on
-    # v5e) and faster up to 16.
-    heavy = (cfg.antialias and has_alb) or raw
-    cap = (2 if wb * tj >= (1 << 17) else 4) if heavy else 16
-    run_eyes_unrolled(eye_body, te, cap)
-
-
-def _project_all(pos, dirs, tgt, cfg: VisionConfig, n_pad_t: int):
-    """Fused XLA projection of every target into every eye.
-
-    Returns (u_c', 1/du', f') each [N_e, N_t_pad] with invalid/padded
-    targets pushed out of the frustum (u_c = 1e9)."""
-    t = math.tan(math.radians(cfg.hfov_deg) * 0.5)
-    rel = tgt[None, :, :] - pos[:, None, :]  # [N_e, N_t, 2]
-    right = jnp.stack([dirs[:, 1], -dirs[:, 0]], axis=-1)
-    f = jnp.einsum("etk,ek->et", rel, dirs)
-    l = jnp.einsum("etk,ek->et", rel, right)
-    valid = (f > cfg.near) & (f < cfg.far)
-    fs = jnp.where(valid, f, 1.0)
-    inv_f = (1.0 / t) / fs
-    uc = jnp.where(valid, l * inv_f, 1e9)
-    inv_du = jnp.where(valid, fs * (t / cfg.sprite_radius), 1.0)
-    pad = n_pad_t - tgt.shape[0]
-    if pad:
-        uc = jnp.pad(uc, ((0, 0), (0, pad)), constant_values=1e9)
-        inv_du = jnp.pad(inv_du, ((0, 0), (0, pad)), constant_values=1.0)
-        f = jnp.pad(f, ((0, 0), (0, pad)), constant_values=cfg.far)
-    return uc, inv_du, f
-
-
-# [N_e, N_t] projection tensors above this element count would strain HBM;
-# fall back to the streaming kernel (which never materializes them).
-_PRECOMPUTE_MAX_ELEMS = 1 << 24
-
-
-def _num_outputs(cfg: VisionConfig, has_alb: bool, raw: bool) -> int:
-    if not raw:
-        return 2
-    return 2 + (1 if cfg.antialias else 0) + (1 if has_alb else 0)
+    for ref, val in zip(out_refs, outs):
+        ref[...] = val
 
 
 def _decode_textured(outs, cfg: VisionConfig, texture, has_alb: bool):
     """XLA epilogue for raw winner mode: bilinear texture sample at the
     winner's scanline uv, then the dense path's exact shade composition
     (vision.render._agent_row with texture; scene.frag:11-16 structure).
-    Runs on O(N*W) elements OUTSIDE the kernel — Mosaic never gathers."""
-    from ..vision.render import sample_texture_auto as sample_texture
+    Runs on O(N*W) elements outside the kernel."""
+    from ..vision.render import sample_texture
 
     off, d = outs[0], outs[1]
     i = 2
@@ -407,63 +188,15 @@ def _decode_textured(outs, cfg: VisionConfig, texture, has_alb: bool):
     return shade, d
 
 
-def _render_precomputed(
-    pos, dirs, tgt, cfg, te, tj, wb, n_pad_e, n_pad_t, albedo=None, raw=False
-):
-    uc, inv_du, f = _project_all(pos, dirs, tgt, cfg, n_pad_t)
-    if n_pad_e != pos.shape[0]:
-        pad = ((0, n_pad_e - pos.shape[0]), (0, 0))
-        uc = jnp.pad(uc, pad, constant_values=1e9)
-        inv_du = jnp.pad(inv_du, pad, constant_values=1.0)
-        f = jnp.pad(f, pad, constant_values=cfg.far)
-
-    grid = (n_pad_e // te, cfg.width // wb)
-    has_alb = albedo is not None
-    kernel = functools.partial(
-        _raster_kernel, cfg=cfg, tj=tj, has_alb=has_alb, raw=raw
-    )
-    pspec = lambda: pl.BlockSpec(
-        (te, n_pad_t), lambda i, p: (i, 0), memory_space=pltpu.VMEM
-    )
-    ospec = lambda: pl.BlockSpec(
-        (te, wb), lambda i, p: (i, p), memory_space=pltpu.VMEM
-    )
-    in_specs = [pspec(), pspec(), pspec()]
-    args = [uc, inv_du, f]
-    if has_alb:
-        in_specs.append(
-            pl.BlockSpec((1, n_pad_t), lambda i, p: (0, 0), memory_space=pltpu.VMEM)
-        )
-        args.append(row(pad_axis(albedo, n_pad_t)))
-    n_out = _num_outputs(cfg, has_alb, raw)
-    return pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=[ospec() for _ in range(n_out)],
-        out_shape=[
-            jax.ShapeDtypeStruct((n_pad_e, cfg.width), jnp.float32)
-            for _ in range(n_out)
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=10 * n_pad_e * n_pad_t * cfg.width,
-            bytes_accessed=(3 * n_pad_e * n_pad_t + 2 * n_pad_e * cfg.width) * 4,
-            transcendentals=0,
-        ),
-        interpret=interpret_mode(),
-    )(*args)
-
-
-@functools.partial(jax.jit, static_argnames=("cfg", "te", "tj", "wb"))
+@functools.partial(jax.jit, static_argnames=("cfg", "te", "wb"))
 def render_rows_tiled(
     pos: jax.Array,
     vel: jax.Array,
     cfg: VisionConfig,
-    te: int = EYES_PER_PROGRAM,
-    tj: int = TILE_J,
     targets: jax.Array | None = None,
     albedo: jax.Array | None = None,
     texture: jax.Array | None = None,
+    te: int | None = None,
     wb: int | None = None,
 ):
     """Pallas counterpart of vision.render.render_rows.
@@ -475,148 +208,65 @@ def render_rows_tiled(
     brightness in place of cfg.sprite_albedo (per-agent appearance,
     src/main.rs:322-356's skin texture analog). `texture` [Ht, Wt] turns
     the constant-albedo splat into a texture-sampled one (the skin.png
-    mechanism, scene.frag:11-16): the kernels run in raw winner mode
-    (signed offset out) and the bilinear lookup happens in a fused XLA
-    epilogue — gathers never enter Mosaic.
+    mechanism, scene.frag:11-16): the kernel runs in raw winner mode
+    (signed offset out) and the bilinear lookup happens in an XLA epilogue.
+    `te`/`wb` override the block choice of raycast_blocks (powers of two).
     """
-    raw = texture is not None
     if cfg.sprite_mode != "disc":
         raise NotImplementedError(
-            "the Pallas raycast models the disc splat; sprite_mode="
-            "'wireframe' has its own kernel in ops.wireframe"
+            "the raycast kernel models the disc splat; sprite_mode="
+            "'wireframe' renders through vision.render"
         )
+    raw = texture is not None
+    has_alb = albedo is not None
     tgt = pos if targets is None else targets
     n = pos.shape[0]
     m = tgt.shape[0]
-    tj = fit_tile(tj, m, 8)
-    n_pad_t = round_up(m, tj)  # target padding
-    n_pad_e = round_up(n, te)  # eye padding
-    # wide images are tiled into pixel blocks so the (TJ, WB) temporaries of
-    # the te-way unrolled eye loop stay inside the VMEM budget; wb=128 with
-    # the widest tj the budget allows won the v5e sweep at W=1024 (1.68x
-    # over wb=256/tj=512). `wb` overrides (tests/sweeps).
-    wb_user = wb
-    if wb is None:
-        if cfg.width <= 128:
-            wb = cfg.width
-        elif cfg.width % 128 == 0:
-            wb = 128
-        elif cfg.width <= 256:
-            wb = cfg.width
-        else:
-            raise ValueError(
-                f"the Pallas render path needs vision width <= 256 or a "
-                f"multiple of 128, got {cfg.width}; use backend='dense' for "
-                f"odd widths"
-            )
-    elif cfg.width % wb:
-        raise ValueError(f"wb {wb} must divide the vision width {cfg.width}")
+    auto_te, auto_wb = raycast_blocks(n, cfg.width)
+    te = te or auto_te
+    wb = wb or auto_wb
+    n_pad = round_up(n, te)
+    w_pad = round_up(cfg.width, wb)
+    m_pad = round_up(m, UNROLL)
     dirs = camera.unit_heading(vel)
 
-    # Few-target wide-row shapes (the reference's own N=100 x W=1024 eye,
-    # src/main.rs:654+694): the raster precompute pads targets to 128 lanes
-    # and eyes to 16 (~30% dead work at N=100) while the streaming kernel
-    # pads targets only to 8 on sublanes and amortizes its per-target
-    # projection columns over the whole row — measured 2.9e6 vs 0.81e6
-    # agent-frames/s on v5e (r3 sweep). Route them to streaming with a
-    # single-chunk target tile and a whole-row pixel block.
-    small_m_wide = (
-        wb_user is None
-        and cfg.width >= 512
-        and cfg.width % 128 == 0
-        and round_up(m, 8) * min(cfg.width, 1024) <= (1 << 18)
-    )
-    if small_m_wide:
-        tj = round_up(m, 8)
-        n_pad_t = tj
-        wb = next(d for d in (1024, 512, 256, 128) if cfg.width % d == 0)
-
-    # precompute path: also bound the (te, n_pad_t) projection input blocks
-    # (3 resident) to ~6 MB of VMEM — asymmetric few-eyes/many-targets calls
-    # can pass the element gate yet blow the block budget
-    te_p = fit_tile(32, n, 8)
-    if not small_m_wide and (
-        n_pad_e * n_pad_t <= _PRECOMPUTE_MAX_ELEMS
-        and 3 * te_p * round_up(m, 128) * 4 <= (6 << 20)
-    ):
-        # lane-major projections want 128-multiple chunks; widest chunk the
-        # (WB, TJ) temporaries allow minimizes per-eye loop trips (swept on
-        # v5e: +20% over TJ=512 at W=64), and 32 eyes/program amortizes
-        # program-switch overhead. The temporary budget is per pixel-BLOCK
-        # (wb), not per image width — wide images tile the pixel axis.
-        # Few-target scenes (one 128-chunk, e.g. the reference's N=100 with
-        # W=1024 eyes) instead want the widest pixel block and fewer eyes
-        # per program — the work per (eye, chunk) is tiny, so program count
-        # dominates (swept on v5e: te=16/wb=512 is 1.6x te=32/wb=128).
-        if (wb_user is None and round_up(m, 128) <= 128
-                and cfg.width % 128 == 0 and cfg.width > 128):
-            wb = next(d for d in (512, 256, 128) if cfg.width % d == 0)
-            te_p = fit_tile(16, n, 8)
-        n_pad_e_p = round_up(n, te_p)
-        tj_p = fit_tile(min(2048, max(128, (1 << 17) // wb)), m, 128)
-        n_pad_t_p = round_up(m, tj_p)
-        outs = _render_precomputed(
-            pos, dirs, tgt, cfg, te_p, tj_p, wb, n_pad_e_p, n_pad_t_p,
-            albedo=albedo, raw=raw,
-        )
-        outs = [o[:n] for o in outs]
-        if raw:
-            return _decode_textured(outs, cfg, texture, albedo is not None)
-        return outs[0], outs[1]
-
-    ex = pad_axis(pos[:, 0], n_pad_e)
-    ey = pad_axis(pos[:, 1], n_pad_e)
-    dx = pad_axis(dirs[:, 0], n_pad_e)
-    dy = pad_axis(dirs[:, 1], n_pad_e)
-    tx = pad_axis(tgt[:, 0], n_pad_t)
-    ty = pad_axis(tgt[:, 1], n_pad_t)
-    mask = pad_axis(jnp.ones((m,), jnp.float32), n_pad_t)
-
-    grid = (n_pad_e // te, cfg.width // wb)
-    has_alb = albedo is not None
-    kernel = functools.partial(
-        _raycast_kernel, cfg=cfg, tj=tj, has_alb=has_alb, raw=raw
-    )
-    espec = lambda: pl.BlockSpec(
-        (te, 1), lambda i, p: (i, 0), memory_space=pltpu.VMEM
-    )
-    tspec = lambda: pl.BlockSpec(
-        (n_pad_t, 1), lambda i, p: (0, 0), memory_space=pltpu.VMEM
-    )
-    ospec = lambda: pl.BlockSpec(
-        (te, wb), lambda i, p: (i, p), memory_space=pltpu.VMEM
-    )
-    in_specs = [espec(), espec(), espec(), espec(), tspec(), tspec(), tspec()]
-    args = [col(ex), col(ey), col(dx), col(dy), col(tx), col(ty), col(mask)]
+    espec = pl.BlockSpec((te,), lambda i, p: (i,))
+    tspec = pl.BlockSpec((m_pad,), lambda i, p: (0,))
+    ospec = pl.BlockSpec((te, wb), lambda i, p: (i, p))
+    in_specs = [espec] * 4 + [tspec] * 2
+    args = [
+        pad_axis(pos[:, 0], n_pad), pad_axis(pos[:, 1], n_pad),
+        pad_axis(dirs[:, 0], n_pad, value=1.0), pad_axis(dirs[:, 1], n_pad),
+        pad_axis(tgt[:, 0], m_pad), pad_axis(tgt[:, 1], m_pad),
+    ]
     if has_alb:
-        in_specs.append(tspec())
-        args.append(col(pad_axis(albedo, n_pad_t)))
-    n_out = _num_outputs(cfg, has_alb, raw)
+        in_specs.append(tspec)
+        args.append(pad_axis(albedo, m_pad))
+    n_out = 2 + (raw and cfg.antialias) + (raw and has_alb)
+    kernel = functools.partial(
+        _raycast_kernel, cfg=cfg, m=m, has_alb=has_alb, raw=raw
+    )
     outs = pl.pallas_call(
         kernel,
-        grid=grid,
+        grid=(n_pad // te, w_pad // wb),
         in_specs=in_specs,
-        out_specs=[ospec() for _ in range(n_out)],
-        out_shape=[
-            jax.ShapeDtypeStruct((n_pad_e, cfg.width), jnp.float32)
-            for _ in range(n_out)
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=12 * n_pad_e * n_pad_t * cfg.width // tj * tj,
-            bytes_accessed=(4 * n_pad_e + 3 * n_pad_t + 2 * n_pad_e * cfg.width) * 4,
-            transcendentals=0,
+        out_specs=[ospec] * n_out,
+        out_shape=[jax.ShapeDtypeStruct((n_pad, w_pad), jnp.float32)] * n_out,
+        backend="triton",
+        compiler_params=plt.CompilerParams(
+            num_warps=max(1, min(4, te * wb // TILE)), num_stages=1
         ),
         interpret=interpret_mode(),
+        name="raycast",
     )(*args)
-
-    outs = [o[:n] for o in outs]
+    outs = [o[:n, : cfg.width] for o in outs]
     if raw:
         return _decode_textured(outs, cfg, texture, has_alb)
     return outs[0], outs[1]
 
 
 # ---------------------------------------------------------------------------
-# Differentiable path: custom VJP with a tiled backward kernel
+# Differentiable path: custom VJP with a closed-form backward
 # ---------------------------------------------------------------------------
 #
 # The observation is piecewise-smooth in agent state: the depth test picks a
@@ -629,145 +279,85 @@ def render_rows_tiled(
 # (t = tan(hfov/2), R = sprite radius, f/l = forward/lateral view coords), so
 #     d off / d f = u_p * t / R,      d off / d l = -1 / R.
 # With antialiasing the edge coverage also depends on the splat's pixel scale
-# s = (W/2) * du = W*R / (2*f*t), ds/df = -s/f. The backward kernel re-walks
-# the forward's tiles, identifies each pixel's winner by matching the saved
-# depth residual, and pulls the (shade, depth) cotangents back through the
-# winner into (d pos, d heading) — the same all-pairs access pattern as the
-# forward, with per-eye accumulators plus a grid-accumulated target-gradient
-# output. Gradients of the discrete winner choice and of binary-coverage
-# boundaries are zero a.e. and dropped (exactly what autodiff of the dense
-# oracle does); with cfg.antialias the observation is piecewise-linear in
-# positions and the gradient is the full, useful one (the reason the
-# antialias flag exists — see VisionConfig).
+# s = (W/2) * du = W*R / (2*f*t), ds/df = -s/f. The backward re-projects
+# every (eye, target) pair, identifies each pixel's winner by matching the
+# saved depth residual, and pulls the (shade, depth) cotangents back through
+# the winner into (d pos, d heading). Gradients of the discrete winner
+# choice and of binary-coverage boundaries are zero a.e. and dropped
+# (exactly what autodiff of the dense oracle does); with cfg.antialias the
+# observation is piecewise-linear in positions and the gradient is the full,
+# useful one (the reason the antialias flag exists — see VisionConfig).
 #
 # Equal-depth ties would double-count (both fragments match the residual);
-# real configurations never tie (same caveat as the forward's tie-break).
+# real configurations never tie.
 
-BWD_EYES_PER_PROGRAM = 8
+# [B, M, W] temporaries of one eye block are bounded to this many elements
+_BWD_BLOCK_ELEMS = 1 << 20
 
 
-def _raycast_bwd_kernel(
-    ex_ref, ey_ref, dx_ref, dy_ref,  # [TE, 1] eye position / unit heading
-    tx_ref, ty_ref, m_ref,  # [N_pad, 1] targets (sublane-major) + mask
-    dep_ref, us_ref, ud_ref,  # [TE, W] depth residual + cotangents
-    gxi_ref, gyi_ref, gdx_ref, gdy_ref,  # [TE, 1] out: eye pos/heading grads
-    gtx_ref, gty_ref,  # [N_pad, 1] out: target grads (grid-accumulated)
-    *,
-    cfg: VisionConfig,
-    tj: int,
-):
-    te = ex_ref.shape[0]
-    w = dep_ref.shape[1]
-    n_pad = tx_ref.shape[0]
-    num_chunks = n_pad // tj
+def _eye_vjp(p, d, dpr, usr, udr, tgt, cfg: VisionConfig):
+    """One eye's pullback against all targets: (d eye [2], d dir [2],
+    d targets [M, 2])."""
     t = math.tan(math.radians(cfg.hfov_deg) * 0.5)
     r_s = cfg.sprite_radius
     alb = cfg.sprite_albedo
+    u_p = camera.pixel_centers(cfg)[None, :]  # (1, W)
+    hx, hy = d[0], d[1]
+    relx = (tgt[:, 0] - p[0])[:, None]  # (M, 1)
+    rely = (tgt[:, 1] - p[1])[:, None]
+    f = relx * hx + rely * hy
+    l = relx * hy - rely * hx
+    valid = (f > cfg.near) & (f < cfg.far)
+    fs = jnp.where(valid, f, 1.0)
+    inv_du = fs * (t / r_s)
 
-    @pl.when(pl.program_id(0) == 0)
-    def _init():
-        gtx_ref[:] = jnp.zeros_like(gtx_ref)
-        gty_ref[:] = jnp.zeros_like(gty_ref)
+    off = (u_p - l / (fs * t)) * inv_du  # (M, W)
+    o2 = off * off
+    if cfg.antialias:
+        hp = fs * (t / (cfg.width * r_s))
+        cov = o2 < (1.0 + hp) * (1.0 + hp)
+    else:
+        cov = o2 < 1.0
+    # winner: covered and depth matches the stored residual (small relative
+    # tolerance absorbs fp reassociation between the forward's projection
+    # and this recomputation)
+    win = valid & cov & (f <= dpr[None, :] * (1.0 + 1e-5))
 
-    u_p = (
-        2.0
-        * (
-            jax.lax.broadcasted_iota(jnp.int32, (1, w), 1).astype(jnp.float32)
-            + 0.5
-        )
-        / cfg.width
-        - 1.0
-    )  # (1, W)
+    inside = o2 < 1.0
+    dval = jnp.where(inside, (-0.5 * alb) * off, 0.0)
+    us = usr[None, :]
+    if cfg.antialias:
+        s = (0.5 * cfg.width * r_s) / (fs * t)  # (M, 1) splat px scale
+        absoff = jnp.abs(off)
+        c = (1.0 - absoff) * s + 0.5
+        live = (c > 0.0) & (c < 1.0)
+        covf = jnp.clip(c, 0.0, 1.0)
+        vmb = alb * (1.0 - 0.25 * jnp.minimum(o2, 1.0)) - cfg.background
+        dsh_doff = covf * dval + jnp.where(live, -jnp.sign(off) * s * vmb, 0.0)
+        dsh_ds = jnp.where(live, (1.0 - absoff) * vmb, 0.0)
+        goff = jnp.where(win, us * dsh_doff, 0.0)
+        gf_extra = jnp.where(win, us * dsh_ds * (-s / fs), 0.0)
+    else:
+        goff = jnp.where(win, us * dval, 0.0)
+        gf_extra = 0.0
+    gf = goff * (u_p * (t / r_s)) + gf_extra + jnp.where(win, udr[None, :], 0.0)
+    gl = goff * (-1.0 / r_s)
 
-    def eye_body(e, _):
-        # dynamic eye loop — see _raycast_kernel for the scoped-vmem rationale
-        px, py = ex_ref[e, 0], ey_ref[e, 0]
-        hx, hy = dx_ref[e, 0], dy_ref[e, 0]
-        dpr = dep_ref[pl.ds(e, 1), :]  # (1, W)
-        usr = us_ref[pl.ds(e, 1), :]
-        udr = ud_ref[pl.ds(e, 1), :]
-
-        def body(k, carry, px=px, py=py, hx=hx, hy=hy, dpr=dpr, usr=usr, udr=udr):
-            axi, ayi, adx, ady = carry
-            j0 = pl.multiple_of(k * tj, tj)
-            tx = tx_ref[pl.ds(j0, tj), :]  # (TJ, 1)
-            ty = ty_ref[pl.ds(j0, tj), :]
-            mj = m_ref[pl.ds(j0, tj), :] > 0.0
-
-            relx = tx - px
-            rely = ty - py
-            f = relx * hx + rely * hy
-            l = relx * hy - rely * hx
-            valid = (f > cfg.near) & (f < cfg.far) & mj
-            fs = jnp.where(valid, f, 1.0)
-            inv_du = fs * (t / r_s)
-
-            off = (u_p - l / (fs * t)) * inv_du  # (TJ, W)
-            o2 = off * off
-            if cfg.antialias:
-                hp = fs * (t / (cfg.width * r_s))  # (TJ, 1)
-                cov = o2 < (1.0 + hp) * (1.0 + hp)
-            else:
-                cov = o2 < 1.0
-            # winner: covered and depth matches the stored residual (small
-            # relative tolerance absorbs fp reassociation between the
-            # forward's projection and this recomputation)
-            win = valid & cov & (f <= dpr * (1.0 + 1e-5))
-
-            inside = o2 < 1.0
-            dval = jnp.where(inside, (-0.5 * alb) * off, 0.0)
-            if cfg.antialias:
-                s = (0.5 * cfg.width * r_s) / (fs * t)  # (TJ, 1) splat px scale
-                absoff = jnp.abs(off)
-                c = (1.0 - absoff) * s + 0.5
-                live = (c > 0.0) & (c < 1.0)
-                covf = jnp.clip(c, 0.0, 1.0)
-                oc2 = jnp.minimum(o2, 1.0)
-                vmb = alb * (1.0 - 0.25 * oc2) - cfg.background  # val - bg
-                dsh_doff = covf * dval + jnp.where(
-                    live, -jnp.sign(off) * s * vmb, 0.0
-                )
-                dsh_ds = jnp.where(live, (1.0 - absoff) * vmb, 0.0)
-                goff = jnp.where(win, usr * dsh_doff, 0.0)
-                gf_extra = jnp.where(win, usr * dsh_ds * (-s / fs), 0.0)
-            else:
-                goff = jnp.where(win, usr * dval, 0.0)
-                gf_extra = 0.0
-            gf = goff * (u_p * (t / r_s)) + gf_extra + jnp.where(win, udr, 0.0)
-            gl = goff * (-1.0 / r_s)
-
-            Gf = jnp.sum(gf, axis=1, keepdims=True)  # (TJ, 1)
-            Gl = jnp.sum(gl, axis=1, keepdims=True)
-
-            # d x_j = Gf * dir + Gl * right, right = (hy, -hx)
-            gx_j = Gf * hx + Gl * hy
-            gy_j = Gf * hy - Gl * hx
-            gtx_ref[pl.ds(j0, tj), :] += gx_j
-            gty_ref[pl.ds(j0, tj), :] += gy_j
-
-            axi = axi - jnp.sum(gx_j)
-            ayi = ayi - jnp.sum(gy_j)
-            # d dir: df/dd = rel, dl/dd = (-rel_y, rel_x)
-            adx = adx + jnp.sum(Gf * relx - Gl * rely)
-            ady = ady + jnp.sum(Gf * rely + Gl * relx)
-            return axi, ayi, adx, ady
-
-        zero = jnp.float32(0.0)
-        axi, ayi, adx, ady = jax.lax.fori_loop(
-            0, num_chunks, body, (zero, zero, zero, zero)
-        )
-        gxi_ref[pl.ds(e, 1), :] = jnp.full((1, 1), axi, jnp.float32)
-        gyi_ref[pl.ds(e, 1), :] = jnp.full((1, 1), ayi, jnp.float32)
-        gdx_ref[pl.ds(e, 1), :] = jnp.full((1, 1), adx, jnp.float32)
-        gdy_ref[pl.ds(e, 1), :] = jnp.full((1, 1), ady, jnp.float32)
-        return 0
-
-    # backward kernel: scalar accumulators only, light stack — cap 8
-    # (see common.run_eyes_unrolled for the scoped-vmem rationale)
-    run_eyes_unrolled(eye_body, te, 8)
+    big_f = jnp.sum(gf, axis=1)  # (M,)
+    big_l = jnp.sum(gl, axis=1)
+    # d x_j = Gf * dir + Gl * right, right = (hy, -hx)
+    gx_j = big_f * hx + big_l * hy
+    gy_j = big_f * hy - big_l * hx
+    deye = jnp.stack([-jnp.sum(gx_j), -jnp.sum(gy_j)])
+    # d dir: df/dd = rel, dl/dd = (-rel_y, rel_x)
+    rx, ry = relx[:, 0], rely[:, 0]
+    ddir = jnp.stack([
+        jnp.sum(big_f * rx - big_l * ry), jnp.sum(big_f * ry + big_l * rx)
+    ])
+    return deye, ddir, jnp.stack([gx_j, gy_j], axis=1)
 
 
-@functools.partial(jax.jit, static_argnames=("cfg", "te"))
+@functools.partial(jax.jit, static_argnames=("cfg",))
 def render_rows_vjp_cross(
     pos: jax.Array,
     dirs: jax.Array,
@@ -776,70 +366,43 @@ def render_rows_vjp_cross(
     ud: jax.Array,
     cfg: VisionConfig,
     targets: jax.Array | None = None,
-    te: int = BWD_EYES_PER_PROGRAM,
 ):
     """Pullback of the (cross-block) eye render: cotangents (us, ud) on
     (shade, depth) -> (d eye-pos [N,2], d dirs [N,2], d targets [M,2]).
 
     `depth` must be the FINAL merged depth rows — winners are identified by
     residual matching, so when partial renders over disjoint target blocks
-    are depth-merged (the multi-chip vision ring), calling this per block
+    are depth-merged (the multi-device vision ring), calling this per block
     with the final depth yields each block's exact gradient share. This is
-    the per-hop primitive of parallel.ring.ring_render_rows_diff."""
+    the per-hop primitive of parallel.ring.ring_render_rows_diff.
+
+    Plain XLA: a scan over eye blocks (vmapped within a block) that
+    accumulates the target gradients."""
     tgt = pos if targets is None else targets
     n = pos.shape[0]
     m = tgt.shape[0]
-    te = fit_tile(te, n, 8)
-    n_pad_e = round_up(n, te)
-    # (TJ, W) temporaries: bound to ~32k elems so ~8 live temps stay ~1 MB
-    tj = fit_tile(max(8, (1 << 15) // cfg.width), m, 8)
-    n_pad_t = round_up(m, tj)
+    b = max(1, min(n, _BWD_BLOCK_ELEMS // (m * cfg.width)))
+    nb = -(-n // b)
+    n_pad = nb * b
+    blocks = [
+        pad_axis(a, n_pad).reshape((nb, b) + a.shape[1:])
+        for a in (pos, dirs, depth, us, ud)  # zero cotangents on padded eyes
+    ]
+    one = functools.partial(_eye_vjp, tgt=tgt, cfg=cfg)
 
-    ex = pad_axis(pos[:, 0], n_pad_e)
-    ey = pad_axis(pos[:, 1], n_pad_e)
-    dx = pad_axis(dirs[:, 0], n_pad_e)
-    dy = pad_axis(dirs[:, 1], n_pad_e)
-    tx = pad_axis(tgt[:, 0], n_pad_t)
-    ty = pad_axis(tgt[:, 1], n_pad_t)
-    mask = pad_axis(jnp.ones((m,), jnp.float32), n_pad_t)
-    dep = pad_axis(depth, n_pad_e)
-    usp = pad_axis(us, n_pad_e)  # zero cotangents on padded eyes
-    udp = pad_axis(ud, n_pad_e)
+    def step(dtgt, blk):
+        deye, ddir, dt = jax.vmap(one)(*blk)
+        return dtgt + jnp.sum(dt, axis=0), (deye, ddir)
 
-    grid = (n_pad_e // te,)
-    kernel = functools.partial(_raycast_bwd_kernel, cfg=cfg, tj=tj)
-    espec = lambda: pl.BlockSpec((te, 1), lambda i: (i, 0), memory_space=pltpu.VMEM)
-    tspec = lambda: pl.BlockSpec(
-        (n_pad_t, 1), lambda i: (0, 0), memory_space=pltpu.VMEM
+    dtgt, (deye, ddir) = jax.lax.scan(
+        step, jnp.zeros_like(tgt), tuple(blocks)
     )
-    wspec = lambda: pl.BlockSpec(
-        (te, cfg.width), lambda i: (i, 0), memory_space=pltpu.VMEM
-    )
-    outs = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[espec()] * 4 + [tspec()] * 3 + [wspec()] * 3,
-        out_specs=[espec()] * 4 + [tspec()] * 2,
-        out_shape=[jax.ShapeDtypeStruct((n_pad_e, 1), jnp.float32)] * 4
-        + [jax.ShapeDtypeStruct((n_pad_t, 1), jnp.float32)] * 2,
-        cost_estimate=pl.CostEstimate(
-            flops=30 * n_pad_e * n_pad_t * cfg.width,
-            bytes_accessed=(4 * n_pad_e + 3 * n_pad_t + 3 * n_pad_e * cfg.width) * 4,
-            transcendentals=0,
-        ),
-        interpret=interpret_mode(),
-    )(col(ex), col(ey), col(dx), col(dy), col(tx), col(ty), col(mask),
-      dep, usp, udp)
-    gxi, gyi, gdx, gdy, gtx, gty = outs
-    deye = jnp.concatenate([gxi, gyi], axis=1)[:n]
-    ddirs = jnp.concatenate([gdx, gdy], axis=1)[:n]
-    dtgt = jnp.concatenate([gtx, gty], axis=1)[:m]
-    return deye, ddirs, dtgt
+    return deye.reshape(n_pad, 2)[:n], ddir.reshape(n_pad, 2)[:n], dtgt
 
 
 @functools.partial(jax.custom_vjp, nondiff_argnums=(2,))
 def render_rows_diff(pos: jax.Array, vel: jax.Array, cfg: VisionConfig):
-    """render_rows_tiled with a tiled custom VJP — rollouts that look at the
+    """render_rows_tiled with a custom VJP — rollouts that look at the
     world differentiate THROUGH perception (jax.grad / jax.vjp work). Use
     cfg.antialias=True for meaningful gradients: binary coverage is piecewise
     constant in positions, the antialiased observation is piecewise linear."""
@@ -864,7 +427,7 @@ render_rows_diff.defvjp(_rrd_fwd, _rrd_bwd)
 
 
 def render_lines(state: SceneState, cfg: VisionConfig) -> jax.Array:
-    """`observe()` through the Pallas path: [N, W] shade rows."""
+    """`observe()` through the kernel path: [N, W] shade rows."""
     return render_rows_tiled(state.pos, state.vel, cfg)[0]
 
 

@@ -1,5 +1,5 @@
 """Steppers on the tiled Pallas backend — same semantics as physics.dense,
-with the O(N^2) interaction computed by the VMEM-blocked kernels and the
+with the O(N^2) interaction computed by the tiled kernels and the
 O(N) integration left to XLA fusion."""
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ The reference is single-process/single-GPU — its only parallelism is rayon
 threads (SURVEY.md §2 'Parallelism strategies'). Here the agent axis shards
 over a `jax.sharding.Mesh` and the O(N^2) interactions run as a ring: each
 device keeps its agent block resident and circulates position blocks around
-the ICI ring with `ppermute`, accumulating partial forces/renders per hop —
+the ring with `ppermute` (NCCL on GPUs), accumulating partial forces/renders per hop —
 structurally ring attention with agents as the sequence axis.
 """
 

@@ -1,6 +1,6 @@
 """Compiler-partitioned backend: mesh + sharding annotations, no shard_map.
 
-The other half of the TPU scaling recipe ("pick a mesh, annotate shardings,
+The other half of the JAX scaling recipe ("pick a mesh, annotate shardings,
 let XLA insert collectives"): instead of the explicit ppermute ring
 (`parallel/ring.py`), the DENSE O(N^2) force law runs under jit with
 `with_sharding_constraint` pinning the i-axis of the [N, N] interaction

@@ -1,4 +1,4 @@
-"""Mesh helpers: the TPU replacement for the reference's Gpu device layer
+"""Mesh helpers: the replacement for the reference's Gpu device layer
 (gfx.rs:20-100) — instead of one wgpu device/queue, a named mesh of chips
 with sharding rules.
 
@@ -32,8 +32,8 @@ def init_distributed(
 ) -> None:
     """Join the multi-host process group (jax.distributed.initialize).
 
-    On Cloud TPU pods all arguments auto-detect from the metadata server;
-    elsewhere pass coordinator ("host:port"), world size, and rank. Must run
+    Pass coordinator ("host:port"), world size, and rank (on a plain GPU
+    host nothing announces a cluster, so they are required). Must run
     before the backend initializes (any jax.devices() call freezes it).
     After this, jax.devices() is the GLOBAL device list and make_mesh()
     spans hosts."""

@@ -18,7 +18,7 @@ block).
 
 All entry points take GLOBAL arrays and run shard_map internally; they
 also accept a leading env batch dim sharded over a data axis. Partials
-dispatch to the Pallas kernels on TPU and the dense jnp path elsewhere.
+dispatch to the Pallas kernels on a GPU and the dense jnp path elsewhere.
 """
 
 from __future__ import annotations
@@ -39,7 +39,9 @@ from .mesh import AGENT_AXIS, default_mesh
 
 def _use_pallas(backend: str) -> bool:
     if backend == "auto":
-        return jax.default_backend() == "tpu"
+        from ..ops.common import kernel_mode
+
+        return kernel_mode() == "compile"
     return backend == "pallas"
 
 
@@ -198,7 +200,6 @@ def ring_render_rows(
     data_axis: Optional[str] = None,
     partials: str = "auto",
     texture: Optional[jax.Array] = None,
-    wf_force_streaming: bool = False,
 ) -> Tuple[jax.Array, jax.Array]:
     """(shade, depth) [(B,) N, W] with both eyes and targets sharded: each
     hop renders the local eyes against the circulating target block and
@@ -220,22 +221,16 @@ def ring_render_rows(
     wf = vcfg.sprite_mode == "wireframe"
 
     def partial_render(pi, vi, tgt, tvel):
-        from ..ops.common import kernel_width_ok
-
-        # NEITHER render kernel can tile widths >256 off the 128-lane grid
-        # (disc raycast and wireframe share the constraint); those hops
-        # render dense (any width) instead of raising
-        if _use_pallas(partials) and kernel_width_ok(vcfg.width):
-            if wf:
-                from ..ops import wireframe
-
-                return _maybe_vmap(
-                    lambda a, b, t, tv: wireframe.render_rows_wireframe_tiled(
-                        a, b, vcfg, targets=t, target_vel=tv, texture=texture,
-                        force_streaming=wf_force_streaming,
-                    ),
-                    pi, vi, tgt, tvel,
-                )
+        if wf:
+            # wireframe sprites render through vision.render (XLA) on every
+            # platform
+            return _maybe_vmap(
+                lambda a, b, t, tv: dense_render.render_rows(
+                    a, b, vcfg, targets=t, target_vel=tv, texture=texture
+                ),
+                pi, vi, tgt, tvel,
+            )
+        if _use_pallas(partials):
             from ..ops import raycast
 
             return _maybe_vmap(
@@ -243,13 +238,6 @@ def ring_render_rows(
                     a, b, vcfg, targets=t, texture=texture
                 ),
                 pi, vi, tgt,
-            )
-        if wf:
-            return _maybe_vmap(
-                lambda a, b, t, tv: dense_render.render_rows(
-                    a, b, vcfg, targets=t, target_vel=tv, texture=texture
-                ),
-                pi, vi, tgt, tvel,
             )
         return _maybe_vmap(
             lambda a, b, t: dense_render.render_rows(
@@ -322,8 +310,8 @@ def _bwd_ring_hops(hop, locals_, blk, d, axis, batched):
 
 def _ring_render_bwd_local(pos_l, vel_l, depth_l, us_l, ud_l, vcfg, d, axis):
     """Per-device backward ring (runs inside shard_map): each hop pulls
-    the local eyes' cotangents through the disc raycast backward kernel
-    against the circulating position block."""
+    the local eyes' cotangents through the disc raycast backward against
+    the circulating position block."""
     from ..ops import raycast
 
     dirs_l, pull_dirs = jax.vjp(_unit_heading, vel_l)
@@ -343,9 +331,9 @@ def _ring_render_bwd_local(pos_l, vel_l, depth_l, us_l, ud_l, vcfg, d, axis):
 
 
 def _ring_render_bwd_local_wf(pos_l, vel_l, depth_l, us_l, ud_l, vcfg, d, axis):
-    """Wireframe backward ring, dense edition: the per-hop pullback is
-    plain JAX autodiff of the DENSE cross-block wireframe render (the same
-    autodiff that powers single-chip wireframe diff-vision), masked to the
+    """Wireframe backward ring: the per-hop pullback is plain JAX autodiff
+    of the XLA cross-block wireframe render (the same autodiff that powers
+    single-device wireframe diff-vision), masked to the
     pixels this hop's block WON. The residual-matching argument is the
     disc kernel's: merge_rows keeps exactly one block's fragment per
     pixel, and at winner pixels the final (shade, depth) EQUALS the
@@ -376,37 +364,6 @@ def _ring_render_bwd_local_wf(pos_l, vel_l, depth_l, us_l, ud_l, vcfg, d, axis):
     return acc_eye + gblk[0], acc_vel + gblk[1]
 
 
-def _ring_render_bwd_local_wf_kernel(
-    pos_l, vel_l, depth_l, us_l, ud_l, vcfg, d, axis, compact=False
-):
-    """Kernel edition of the wireframe backward ring: each hop is the
-    wireframe backward Pallas kernel (ops.wireframe.render_rows_wireframe_
-    vjp_cross, or its compact-route edition when the hop shape qualifies —
-    wide rows inherit the group-range culling and inverse-depth op diet in
-    the per-hop pullback too) instead of a dense autodiff transpose.
-    Target HEADINGS circulate (the kernels take unit headings directly);
-    their cotangents ride home with the block and pull back through
-    unit_heading there."""
-    from ..ops import wireframe as wf_ops
-
-    dirs_l, pull_dirs = jax.vjp(_unit_heading, vel_l)
-    vjp_cross = (wf_ops.render_rows_wireframe_vjp_cross_compact if compact
-                 else wf_ops.render_rows_wireframe_vjp_cross)
-
-    def hop(p, dd, dep, us, ud, t, th):
-        deye, ddir, dtgt, dhdg = vjp_cross(
-            p, dd, dep, us, ud, vcfg, targets=t, target_hdg=th
-        )
-        return (deye, ddir), (dtgt, dhdg)
-
-    (acc_eye, acc_dir), gblk = _bwd_ring_hops(
-        hop, (pos_l, dirs_l, depth_l, us_l, ud_l), (pos_l, dirs_l), d, axis,
-        batched=pos_l.ndim == 3,
-    )
-    (dvel,) = pull_dirs(acc_dir + gblk[1])
-    return acc_eye + gblk[0], dvel
-
-
 def ring_render_rows_diff(
     pos: jax.Array,
     vel: jax.Array,
@@ -417,36 +374,15 @@ def ring_render_rows_diff(
 ) -> Tuple[jax.Array, jax.Array]:
     """ring_render_rows with gradients (see block comment above). Requires
     N divisible by the mesh axis (sentinel padding would need masked
-    cotangent plumbing; use divisible N for differentiable vision), and —
-    for DISC sprites on TPU — a kernel-tileable width (<=256 or a
-    128-multiple): the disc per-hop backward is always the raycast backward
-    kernel, which raises on other widths (the forward ring falls back to
-    dense partials for them; wireframe has a dense backward edition).
+    cotangent plumbing; use divisible N for differentiable vision).
 
-    sprite_mode='wireframe' works too: on TPU both the forward partials
-    and the per-hop backward run the wireframe Pallas kernels — forward
-    hops FORCE the streaming variant so the backward's recomputed-min
-    winner identification follows the same fp route (cross-block
-    near-ties remain the only residual-matching caveat, as for the disc),
-    except at compact-eligible hop shapes (wide rows), where the hop
-    forward runs the compact kernel and the hop backward its culled
-    compact cross pullback — again one fp route for the pair; off-TPU the
-    per-hop backward is the dense autodiff pullback
-    (_ring_render_bwd_local_wf) over dense partials."""
-    from ..ops.common import kernel_width_ok
-
+    Disc sprites pull back per hop through the closed-form raycast
+    backward; sprite_mode='wireframe' pulls back per hop through plain
+    autodiff of the XLA cross-block render (_ring_render_bwd_local_wf)."""
     mesh = mesh or default_mesh()
     wf = vcfg.sprite_mode == "wireframe"
-    wf_kernel = wf and _use_pallas("auto") and kernel_width_ok(vcfg.width)
     n = pos.shape[-2]
     d = mesh.shape[axis]
-    # compact-eligible HOP shapes (wide rows; m is the circulating block)
-    # run the compact forward per hop and its culled cross backward — the
-    # fwd/bwd pair recomputes winners on one fp route, exactly as the
-    # streaming pair below does
-    from ..ops import wireframe as _wf_ops
-
-    wf_compact = wf_kernel and _wf_ops._compact_route_ok(vcfg, n // d)
     if n % d:
         raise ValueError(
             f"ring_render_rows_diff needs agent count {n} divisible by mesh "
@@ -455,16 +391,8 @@ def ring_render_rows_diff(
 
     @functools.partial(jax.custom_vjp, nondiff_argnums=())
     def _render(p, v):
-        # wf kernel path: force the STREAMING forward variant per hop so
-        # the backward kernel's recomputed min follows the same fp route
-        # (the raster variant disagrees by an ulp at coverage boundaries
-        # and would misroute those pixels' gradients within a block)
         return ring_render_rows(p, v, vcfg, mesh=mesh, axis=axis,
-                                data_axis=data_axis,
-                                partials="dense" if (wf and not wf_kernel)
-                                else "auto",
-                                wf_force_streaming=wf_kernel
-                                and not wf_compact)
+                                data_axis=data_axis)
 
     def _fwd(p, v):
         shade, depth = _render(p, v)
@@ -473,16 +401,7 @@ def ring_render_rows_diff(
     def _bwd(res, cot):
         p, v, depth = res
         us, ud = cot
-        if wf:
-            bwd_local = (
-                functools.partial(
-                    _ring_render_bwd_local_wf_kernel, compact=wf_compact
-                )
-                if wf_kernel
-                else _ring_render_bwd_local_wf
-            )
-        else:
-            bwd_local = _ring_render_bwd_local
+        bwd_local = _ring_render_bwd_local_wf if wf else _ring_render_bwd_local
 
         def local(p_l, v_l, dep_l, us_l, ud_l):
             return bwd_local(p_l, v_l, dep_l, us_l, ud_l, vcfg, d, axis)

@@ -7,10 +7,9 @@ O(N^2) folds waste their work. This backend buckets agents into hashed grid
 cells of side >= the rule radius and evaluates each agent only against the
 9 neighbor cells' occupants: O(N * 9K) with K the bucket capacity.
 
-DESIGN.md §4c records why this LOSES at the reference's spawn density
-(~1,600 agents per cohesion cell: the exactness capacity K erases the
-asymptotic gain, and TPU gathers are slow lanes) — hence opt-in
-(`backend="cells"`), with the dense/Pallas folds remaining the default.
+At the reference's spawn density (~1,600 agents per cohesion cell) the
+exactness capacity K erases the asymptotic gain — hence opt-in
+(`backend="cells"`), with the dense/kernel folds remaining the default.
 
 Exactness argument (pinned by tests/test_cells.py):
 - every true neighbor within radius r lies in one of the 9 cells around the
@@ -165,8 +164,8 @@ def boids_velocity_cells(
     # one cell list at the LARGER radius serves both rules exactly: the
     # separation radius (5) is far inside the cohesion cell (sqrt(1000)).
     # All big tensors stay [N, 9K] PER COMPONENT: a trailing size-2 axis
-    # would be lane-padded 2 -> 128 by the TPU (8, 128) tiling, a 64x HBM
-    # blowup (observed as a 19 GB allocation at N=65,536).
+    # can be padded by the accelerator's tiled layouts into a many-fold
+    # memory blowup at N=65,536.
     r_pos = math.sqrt(cfg.cohesion_dist_sq)
     cand, valid = neighbor_candidates(pos, r_pos, k, table_size)
     cx_p = pos[:, 0][cand]  # [N, 9K]

@@ -160,7 +160,7 @@ def distill(
     """On-device distillation: generation feeds BC with NO host export.
 
     The datagen path (`rl/datagen.collect`) generates at device rate but
-    pays the host relay to export shards; here each iteration is ONE jitted
+    pays the host transfer to export shards; here each iteration is ONE jitted
     program that (a) respawns B envs (episodic, see CLAUDE.md on
     distribution drift), (b) rolls them `horizon` steps under the teacher —
     any pure obs -> action function, e.g. the rl.scripted controllers —
@@ -276,7 +276,7 @@ def fit_streaming(
     collect_fn = make_collect_fn(env, behavior_apply, horizon=horizon, mesh=mesh)
     kp, ke, kr, kc = jax.random.split(key, 4)
     states = spawn_batch(ke, env.cfg, num_envs)
-    # zeros carry the init shape; flax params depend on shapes only (and
+    # zeros carry the init shape; params depend on shapes only (and
     # this skips a full render whose values init would ignore)
     params = policy.init(kp, jnp.zeros((1, env.obs_width), jnp.float32))
     opt = optax.adam(lr)

@@ -33,34 +33,17 @@ def _forces(pos: jax.Array, cfg: SimConfig, backend: str) -> jax.Array:
 
 
 def _render(pos: jax.Array, vel: jax.Array, cfg: SimConfig, backend: str):
-    if cfg.vision.sprite_mode == "wireframe":
-        from ..ops.common import kernel_width_ok
-
-        if backend == "pallas" and kernel_width_ok(cfg.vision.width):
-            from ..ops import wireframe
-
-            # kernel-speed differentiable exact-sprite observations: the
-            # wireframe backward kernel pulls the forward tile math back
-            # with jax.vjp inside the Pallas body (APG diff_vision works
-            # with the reference's actual sprite at kernel speed). Widths
-            # the kernel can't tile fall back to the dense renderer, which
-            # accepts any width — as all wireframe observations did before
-            # the kernel path existed
-            return wireframe.render_rows_wireframe_diff(pos, vel, cfg.vision)[0]
-        from ..vision import render
-
-        return render.render_rows(pos, vel, cfg.vision)[0]
-    from ..ops.common import kernel_width_ok
-
-    if backend == "pallas" and kernel_width_ok(cfg.vision.width):
+    if backend == "pallas" and cfg.vision.sprite_mode == "disc":
         from ..ops import raycast
 
         # custom-VJP wrapper: identical forward to render_rows_tiled, plus a
-        # tiled backward kernel, so observe() is differentiable on every
+        # closed-form backward, so observe() is differentiable on every
         # backend (dense is plain jnp autodiff) — see rl/apg.py diff_vision
         return raycast.render_rows_diff(pos, vel, cfg.vision)[0]
     from ..vision import render
 
+    # wireframe sprites render here on every route; autodiff differentiates
+    # them
     return render.render_rows(pos, vel, cfg.vision)[0]
 
 
@@ -108,8 +91,10 @@ class VisionEnv:
         self.backend = _resolve_backend(cfg)
         if self.backend not in ("dense", "pallas"):
             # ring/gspmd are mesh-level wrappers; per-env dynamics reduce to
-            # the single-chip kernels (trainers add the mesh around them)
-            self.backend = "pallas" if jax.default_backend() == "tpu" else "dense"
+            # the single-device kernels (trainers add the mesh around them)
+            from ..ops.common import kernel_mode
+
+            self.backend = "pallas" if kernel_mode() == "compile" else "dense"
 
     @property
     def obs_width(self) -> int:

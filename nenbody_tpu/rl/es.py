@@ -6,7 +6,7 @@ the update is the antithetic ES estimator
 
     g = 1/(P*sigma) * sum_i 0.5 * (f(theta + sigma*eps_i) - f(theta - sigma*eps_i)) * eps_i
 
-This maps onto the TPU as three nested batch axes — population (vmap over
+This maps onto the accelerator as three nested batch axes — population (vmap over
 perturbed params), envs (vmap), agents (kernel axis) — one jit, zero host
 round-trips per generation. All members share env spawns (common random
 numbers), which cancels most fitness variance.

@@ -14,8 +14,8 @@ score-function gradient drowns. PPO attacks exactly that variance:
   more signal per rollout than one REINFORCE step;
 - advantage standardization per update batch.
 
-All compute is batched matmuls over the flattened [T*B*N] sample axis (MXU
-work); the rollout is the same lax.scan of vmapped env steps as rl/train.py.
+All compute is batched matmuls over the flattened [T*B*N] sample axis
+(tensor-core bf16 work with fp32 accumulation); the rollout is the same lax.scan of vmapped env steps as rl/train.py.
 Everything jits into ONE train step.
 
 Mesh mode (make_ppo_step(mesh=...)): env states shard (data, agents) and the
@@ -131,12 +131,15 @@ def make_ppo_step(
 
     def constrain_states(states: SceneState) -> SceneState:
         """Pin freshly-spawned env states to the (data, agents) layout so
-        the ring's shard_map sees them already distributed."""
+        the ring's shard_map sees them already distributed (data-only
+        meshes keep each env's agent axis whole)."""
         if mesh is None:
             return states
-        from ..parallel.mesh import data_axis_of, shard_state_specs
+        from ..parallel.mesh import AGENT_AXIS, data_axis_of, shard_state_specs
 
-        specs = shard_state_specs(batch=True, data_axis=data_axis_of(mesh))
+        agent_axis = AGENT_AXIS if AGENT_AXIS in mesh.axis_names else None
+        specs = shard_state_specs(batch=True, agent_axis=agent_axis,
+                                  data_axis=data_axis_of(mesh))
         return SceneState(
             **{
                 name: jax.lax.with_sharding_constraint(

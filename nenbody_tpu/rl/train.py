@@ -38,39 +38,6 @@ class TrainState(NamedTuple):
     key: jax.Array
 
 
-def _batched_observe_fast(env: VisionEnv):
-    """A batched wireframe observe through the env-in-the-grid Pallas
-    kernel (ops.wireframe.render_rows_wireframe_batched), or None when the
-    config can't route there. Score-function trainers never differentiate
-    through the observation, so the forward-only batched kernel replaces
-    vmap(render_rows_wireframe_diff) — under vmap each env serializes as
-    its own grid instance and the RL shape class measured ~3 orders under
-    the batched disc path. APG (which DOES backprop through perception)
-    routes its differentiable sibling instead
-    (rl.apg._batched_observe_diff -> render_rows_wireframe_batched_diff,
-    the r5 winner-index VJP)."""
-    cfg = env.cfg
-    if (
-        cfg.vision is None
-        or cfg.vision.sprite_mode != "wireframe"
-        or env.backend != "pallas"
-    ):
-        return None
-    from ..ops.common import kernel_width_ok
-
-    if not kernel_width_ok(cfg.vision.width):
-        return None
-    from ..ops import wireframe
-
-    def observe(states):
-        lines = wireframe.render_rows_wireframe_batched(
-            states.pos, states.vel, cfg.vision
-        )[0]
-        return jnp.concatenate([lines, states.vel], axis=-1)
-
-    return observe
-
-
 def _batched_env_fns(env: VisionEnv, mesh: Optional[Mesh]):
     """(observe, step) over batched states [B, N, 2].
 
@@ -78,22 +45,9 @@ def _batched_env_fns(env: VisionEnv, mesh: Optional[Mesh]):
     replicated rather than sharded (data_axis_of -> None). Visibility
     rewards are computed from the observation the step already rendered —
     re-rendering via env.reward would double per-step render cost AND run
-    it through the unsharded single-chip path."""
+    it through the unsharded single-device path."""
     if mesh is None:
-        observe_fast = _batched_observe_fast(env)
-        if observe_fast is None:
-            return jax.vmap(env.observe), jax.vmap(env.step)
-
-        dynamics_b = jax.vmap(env.dynamics)
-
-        def step(states, action):
-            nxt = dynamics_b(states, action)
-            obs = observe_fast(nxt)
-            if env.reward_mode == "visibility":
-                return nxt, obs, env.reward_obs(obs)
-            return nxt, obs, jax.vmap(env.reward)(nxt)
-
-        return observe_fast, step
+        return jax.vmap(env.observe), jax.vmap(env.step)
 
     from ..parallel.mesh import AGENT_AXIS, data_axis_of
 
@@ -131,10 +85,9 @@ def _batched_env_fns(env: VisionEnv, mesh: Optional[Mesh]):
 def _dp_mesh_env_fns(env: VisionEnv, mesh: Mesh):
     """(observe, step) for a DATA-ONLY mesh (make_mesh({"data": n}) — pure
     DP over envs): each device runs its LOCAL env batch through the
-    single-chip batched machinery inside shard_map — including the
-    env-in-the-grid batched wireframe kernel (r4) and its winner-index
-    diff sibling (r5), which do not auto-partition under pjit (Pallas
-    needs shard_map). Physics stay per-env (vmapped), so no agent ring;
+    single-device batched machinery inside shard_map (Pallas kernels do
+    not auto-partition under pjit; they need shard_map). Physics stay
+    per-env (vmapped), so no agent ring;
     agents are device-local, envs shard over the data axis. This is the
     scalable RL layout when one env fits a chip — the (data x agents) ring
     mesh remains the route for envs BIGGER than a chip."""
@@ -146,7 +99,7 @@ def _dp_mesh_env_fns(env: VisionEnv, mesh: Mesh):
             "a mesh without an agent axis needs a data axis to shard envs "
             f"over; got axes {mesh.axis_names}"
         )
-    observe_local = _batched_observe_fast(env) or jax.vmap(env.observe)
+    observe_local = jax.vmap(env.observe)
     dynamics_b = jax.vmap(env.dynamics)
 
     def step_local(states, action):
@@ -160,8 +113,8 @@ def _dp_mesh_env_fns(env: VisionEnv, mesh: Mesh):
                               data_axis=data_axis)
     state_specs = SceneState(**specs)
     pb = P(data_axis)
-    # check_vma=False: Pallas out_shapes carry no vma annotation (the
-    # ring/rdma shard_maps disable it for the same reason)
+    # check_vma=False: Pallas out_shapes carry no vma annotation (the ring
+    # shard_maps disable it for the same reason)
     observe = jax.shard_map(
         observe_local, mesh=mesh, in_specs=(state_specs,), out_specs=pb,
         check_vma=False,

@@ -25,26 +25,30 @@ import jax
 import jax.numpy as jnp
 
 from .config import SimConfig
+from .ops.common import interpret_mode, kernel_mode
 from .physics import dense
 from .state import SceneState, spawn, spawn_batch
 
 
 def _resolve_backend(cfg: SimConfig) -> str:
     if cfg.backend != "auto":
+        if cfg.backend == "pallas":
+            interpret_mode()  # raises on a platform with no kernel route
         return cfg.backend
-    # On TPU the tiled Pallas kernels win at every scale (dense materializes
-    # [N, N] tensors and is memory-bound); with multiple chips attached,
-    # shard the agent axis over the ppermute ring (Pallas partials inside).
-    # Off-TPU Pallas runs interpreted, so prefer dense until the [N, N]
-    # footprint becomes prohibitive.
-    if jax.default_backend() == "tpu":
-        n_dev = len(jax.devices())
-        if n_dev > 1:
-            # arbitrary n: the ring pads the agent axis internally with
-            # inert far sentinels (parallel/ring.py)
-            return "ring"
+    # On a GPU the tiled kernels win at every scale (dense materializes
+    # [N, N] tensors and is memory-bound); with several devices attached,
+    # shard the agent axis over the ppermute ring (kernel partials inside).
+    # On the CPU the kernels run interpreted, so prefer dense until the
+    # [N, N] footprint becomes prohibitive; other platforms have no kernel
+    # route and run dense.
+    mode = kernel_mode()
+    if mode == "compile":
+        # arbitrary n: the ring pads the agent axis internally with inert
+        # far sentinels (parallel/ring.py)
+        return "ring" if len(jax.devices()) > 1 else "pallas"
+    if mode == "interpret" and cfg.n > 8192:
         return "pallas"
-    return "dense" if cfg.n <= 8192 else "pallas"
+    return "dense"
 
 
 def make_step_fn(cfg: SimConfig) -> Callable[[SceneState], SceneState]:
@@ -56,7 +60,7 @@ def make_step_fn(cfg: SimConfig) -> Callable[[SceneState], SceneState]:
     if backend == "dense" or cfg.controller == "random":
         stepper = dense.STEPPERS[cfg.controller]
     elif backend == "pallas":
-        from .ops import tiled  # deferred: pallas import is TPU-flavored
+        from .ops import tiled
 
         stepper = tiled.STEPPERS[cfg.controller]
     elif backend == "ring":
@@ -82,38 +86,21 @@ def make_step_fn(cfg: SimConfig) -> Callable[[SceneState], SceneState]:
     return functools.partial(stepper, cfg=cfg)
 
 
-def _vision_backend(cfg: SimConfig) -> str:
-    """Vision path for a resolved backend: the cell-list physics backend has
-    no vision analog (the eye frustum reaches cfg.far, not a small radius),
-    so it borrows the pallas/dense render like any single-chip config."""
-    backend = _resolve_backend(cfg)
-    if backend == "cells":
-        return "pallas" if jax.default_backend() == "tpu" else "dense"
-    return backend
-
-
 def _vision_route(cfg: SimConfig) -> str:
     """The ONE place the vision routing rules live: resolve a config to
-    'pallas-wf' (exact-sprite kernel), 'pallas', 'ring' (circulates (pos,
-    vel) blocks for wireframe, pos-only for disc), or 'dense'. Wireframe on
-    gspmd/dense routes dense (the exact sprite lives there and plain autodiff
-    keeps it differentiable; the pallas route has its own kernel VJP,
-    ops.wireframe.render_rows_wireframe_diff). Widths the wireframe kernel
-    cannot tile (>256 and not a multiple of 128) fall back to dense rather
-    than raising at observe time."""
-    from .ops.common import kernel_width_ok
-
-    backend = _vision_backend(cfg)
-    if cfg.vision.sprite_mode == "wireframe":
-        if backend == "ring":
-            return "ring"  # the ring's partial renderers apply the guard
-        if backend == "pallas" and kernel_width_ok(cfg.vision.width):
-            return "pallas-wf"
-        return "dense"
-    if backend == "pallas" and not kernel_width_ok(cfg.vision.width):
-        return "dense"  # the disc raycast kernel shares the width constraint
-    if backend in ("pallas", "ring"):
-        return backend
+    'pallas' (the disc raycast kernel), 'ring' (circulates (pos, vel)
+    blocks for wireframe, pos-only for disc), or 'dense'. The cell-list
+    physics backend has no vision analog (the eye frustum reaches cfg.far,
+    not a small radius), so it borrows the single-device route. Wireframe
+    sprites render through vision.render (XLA) on every single-device
+    route; plain autodiff keeps them differentiable."""
+    backend = _resolve_backend(cfg)
+    if backend == "cells":
+        backend = "pallas" if kernel_mode() == "compile" else "dense"
+    if backend == "ring":
+        return "ring"
+    if backend == "pallas" and cfg.vision.sprite_mode == "disc":
+        return "pallas"
     return "dense"
 
 
@@ -128,12 +115,6 @@ def _vision_render_core(cfg: SimConfig) -> Callable:
         from .parallel import ring
 
         return lambda s, t=None: ring.ring_render_rows(
-            s.pos, s.vel, vcfg, texture=t
-        )
-    if route == "pallas-wf":
-        from .ops import wireframe
-
-        return lambda s, t=None: wireframe.render_rows_wireframe_tiled(
             s.pos, s.vel, vcfg, texture=t
         )
     if route == "pallas":
@@ -236,13 +217,8 @@ class Scene:
             fn = self._rgb_cache.get("rgb")
             if fn is None:
                 vcfg = self.cfg.vision
-                # render_rows_rgb dispatches pallas (incl. the wireframe
-                # kernel) or dense itself; collapse the route accordingly
-                be = (
-                    "pallas"
-                    if _vision_route(self.cfg) in ("pallas", "pallas-wf")
-                    else "dense"
-                )
+                # render_rows_rgb dispatches pallas or dense itself
+                be = "pallas" if _vision_route(self.cfg) == "pallas" else "dense"
                 fn = jax.jit(
                     lambda p, v, c: render_lib.render_rows_rgb(
                         p, v, vcfg, c, backend=be

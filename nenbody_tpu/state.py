@@ -2,8 +2,8 @@
 
 The reference keeps scene state as four parallel CPU vectors (positions,
 velocities, and their `old_*` double-buffer copies, src/main.rs:736-750)
-plus derived 4x4 model matrices (src/main.rs:307-314). On TPU the natural
-shape is a pytree of `[..., N, 2]` float32 arrays; the double buffer
+plus derived 4x4 model matrices (src/main.rs:307-314). On an accelerator the
+natural shape is a pytree of `[..., N, 2]` float32 arrays; the double buffer
 disappears because updates are pure functions of the previous state, and the
 model matrices disappear because heading is derived on demand
 (`rotation_of`, src/main.rs:141-143).
@@ -13,16 +13,17 @@ Leading batch dimensions support the batched-envs config (vmap over envs).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from .config import SimConfig
 
 
-@struct.dataclass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class SceneState:
     """Simulation state pytree.
 
@@ -37,6 +38,9 @@ class SceneState:
     vel: jax.Array
     key: jax.Array
     t: jax.Array
+
+    def replace(self, **changes) -> "SceneState":
+        return dataclasses.replace(self, **changes)
 
     @property
     def n(self) -> int:

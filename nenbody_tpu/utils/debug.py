@@ -1,4 +1,4 @@
-"""Debug aids — the TPU analog of the reference's safety story.
+"""Debug aids — the accelerator analog of the reference's safety story.
 
 The reference prevents data races structurally (snapshot-then-parallel-write,
 src/main.rs:414-416) and otherwise fail-fasts on `.unwrap()` (SURVEY.md
@@ -17,7 +17,9 @@ import jax
 def debug_mode(nans: bool = True, infs: bool = False, interpret: bool = False):
     """Context: trip on NaNs/Infs produced by any jitted computation, and
     optionally force Pallas kernels through the interpreter (slow, but
-    line-debuggable with pl.debug_print).
+    line-debuggable with pl.debug_print). The interpreter switch patches the
+    kernels' platform resolver (ops.common.kernel_mode), so it applies to
+    functions traced inside the context.
 
     Example:
         with debug_mode(nans=True):
@@ -29,10 +31,14 @@ def debug_mode(nans: bool = True, infs: bool = False, interpret: bool = False):
     jax.config.update("jax_debug_infs", infs)
     try:
         if interpret:
-            from jax.experimental.pallas import tpu as pltpu
+            from ..ops import common
 
-            with pltpu.force_tpu_interpret_mode():
+            prev_mode = common.kernel_mode
+            common.kernel_mode = lambda: "interpret"
+            try:
                 yield
+            finally:
+                common.kernel_mode = prev_mode
         else:
             yield
     finally:

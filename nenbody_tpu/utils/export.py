@@ -2,7 +2,7 @@
 self-contained StableHLO blob (jax.export).
 
 The reference ships a binary whose scene loop is fixed at build time
-(/root/reference/src/main.rs:649-734); the TPU-native serving analog is an
+(src/main.rs:649-734); the serving analog here is an
 AOT-SERIALIZED step — trained params baked in as module constants — that a
 deployment process loads and calls WITHOUT the policy checkpoint, the net
 definition, or any retracing:
@@ -12,8 +12,9 @@ definition, or any retracing:
     pos, vel, action = step(pos, vel)      # one closed-loop step
 
 Artifacts record the lowering platform(s): an env routed to the dense
-(pure-jnp) paths exports portably (cpu AND tpu via platforms=[...]); an env
-routed to the Pallas kernels pins the artifact to TPU. Shapes are static —
+(pure-jnp) paths exports portably (cpu and cuda via platforms=[...]); an env
+routed to the Pallas kernels pins the artifact to CUDA GPUs and to the JAX
+version that wrote it (the kernels are Triton custom calls). Shapes are static —
 export one artifact per serving shape, exactly like the compiled-executable
 cache the live path uses (scene.py rollout cache).
 """
@@ -130,8 +131,11 @@ def make_fleet_step(env, apply_fn, params, mesh, steps: int = 1) -> Callable:
     return chunk
 
 
-def _serialize(step, n: int, num_envs: Optional[int], platforms,
-               mesh=None) -> bytes:
+def export_step(step, n: int, num_envs: Optional[int] = None, platforms=None,
+                mesh=None) -> jax_export.Exported:
+    """jax.export a (pos, vel) step for (num_envs?, N, 2) inputs; the
+    in-memory artifact (`.call` runs it, `.serialize()` makes the blob —
+    serialization needs the `flatbuffers` package)."""
     if mesh is not None:
         from jax.sharding import NamedSharding, PartitionSpec as P
 
@@ -145,11 +149,21 @@ def _serialize(step, n: int, num_envs: Optional[int], platforms,
             step = jax.vmap(step)
         lead = () if num_envs is None else (num_envs,)
         spec = jax.ShapeDtypeStruct(lead + (n, 2), jnp.float32)
-    exp = jax_export.export(
+    return jax_export.export(
         jax.jit(step),
         platforms=tuple(platforms) if platforms is not None else None,
+        # the GPU kernels lower to XLA's Triton custom call, whose IR JAX
+        # does not promise to keep stable across versions: the artifact is
+        # for the JAX version that wrote it (load_policy_step documents it)
+        disabled_checks=[
+            jax_export.DisabledSafetyCheck.custom_call("__gpu$xla.gpu.triton")
+        ],
     )(spec, spec)
-    return exp.serialize()
+
+
+def _serialize(step, n: int, num_envs: Optional[int], platforms,
+               mesh=None) -> bytes:
+    return export_step(step, n, num_envs, platforms, mesh=mesh).serialize()
 
 
 def export_policy_step(
@@ -163,7 +177,7 @@ def export_policy_step(
 ) -> bytes:
     """Serialize the policy step for (num_envs?, N, 2) inputs.
 
-    platforms: lowering targets (e.g. ["cpu", "tpu"] for a portable dense
+    platforms: lowering targets (e.g. ["cpu", "cuda"] for a portable dense
     artifact); None = the current backend. Params are baked into the module
     as constants — the blob is the whole deployment.
 

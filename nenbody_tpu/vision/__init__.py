@@ -2,7 +2,7 @@
 
 Replaces the reference's Vulkan eye pipeline (layered render target +
 per-agent render passes, src/main.rs:584-647, 693-704) with analytic
-projection + splatting — on TPU both physics and vision are batched array
+projection + splatting — on an accelerator both physics and vision are batched array
 math, so there is no rasterizer, no command buffers, and no per-agent passes.
 """
 

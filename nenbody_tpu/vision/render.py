@@ -10,7 +10,7 @@ color for uncovered pixels (src/main.rs:543). Not pixel-exact sRGB: the
 wireframe-triangle sprite + skin texture is modeled as a disc of constant
 albedo with the vignette profile.
 
-The Pallas kernel in nenbody_tpu/ops/raycast.py must match THIS module
+The disc kernel in nenbody_tpu/ops/raycast.py must match THIS module
 bit-for-bit-ish (fp32 tolerances); this module is validated against a
 brute-force Python oracle in tests/test_vision.py.
 """
@@ -76,11 +76,7 @@ def _agent_row(
         alb = jnp.take(albedo, winner)  # winner's own base brightness
     if texture is not None:
         uv = jnp.stack([0.5 + 0.5 * oc, jnp.full_like(oc, 0.5)], axis=-1)
-        # auto sampler: the gather path scalarizes pathologically in the
-        # TPU compiler at row scale (a [N, W] lookup tensor hung compiles
-        # for >15 min); the contraction path is gather-free and equal at
-        # fp32 epsilon (sample_texture_mm docstring)
-        alb = alb * sample_texture_auto(texture, uv)
+        alb = alb * sample_texture(texture, uv)
     shade = alb * (1.0 - 0.25 * oc * oc)
     if cfg.antialias:
         # exact 1D box-filter coverage of the splat edge over the pixel
@@ -247,9 +243,8 @@ def _agent_row_wireframe(
         mag2 = jnp.sum((uv - 0.5) ** 2, axis=-1)
         if texture is not None:
             # the reference samples skin.png at the interpolated vertex uv
-            # (scene.frag:11-14) before the vignette darkening; auto
-            # sampler for the same reason as _agent_row
-            alb = alb * sample_texture_auto(texture, uv)
+            # (scene.frag:11-14) before the vignette darkening
+            alb = alb * sample_texture(texture, uv)
         shades.append(alb * (1.0 - mag2))
         depths.append(jnp.where(hit, fk, jnp.inf))
 
@@ -388,48 +383,6 @@ def sample_texture(texture: jax.Array, uv: jax.Array) -> jax.Array:
     )
 
 
-def sample_texture_mm(texture: jax.Array, uv: jax.Array) -> jax.Array:
-    """Gather-free bilinear sample for SMALL textures: the clamped linear
-    interpolation weight of texel k at coordinate x is exactly
-    relu(1 - |x - k|) (two nonzero terms, the usual (1-fx, fx) pair), so a
-    bilinear lookup is the tensor-product contraction
-        sample = sum_ij relu(1-|y-i|) relu(1-|x-j|) T[i, j].
-    Identical values to sample_texture up to fp reassociation, but runs as
-    dense VPU math — on TPU, XLA gathers cost ~2,700x a lane-op per element
-    (measured, DESIGN.md §4c), which made the texture epilogue dominate the
-    whole render. Cost O(P * Ht * Wt): use for Ht*Wt up to a few thousand
-    (skin sprites), sample_texture for big atlases."""
-    ht, wt = texture.shape
-    x = jnp.clip(uv[..., 0], 0.0, 1.0) * (wt - 1)
-    y = jnp.clip(uv[..., 1], 0.0, 1.0) * (ht - 1)
-    wx = jnp.maximum(
-        0.0, 1.0 - jnp.abs(x[..., None] - jnp.arange(wt, dtype=x.dtype))
-    )  # [..., Wt]
-    wy = jnp.maximum(
-        0.0, 1.0 - jnp.abs(y[..., None] - jnp.arange(ht, dtype=y.dtype))
-    )  # [..., Ht]
-    # HIGHEST precision: the TPU MXU's default f32 matmul truncates inputs
-    # to bf16 (observed 2e-4 shade error vs the gather path); full-precision
-    # passes keep the two samplers equal at fp32 epsilon
-    rows = jnp.einsum(
-        "...i,ij->...j", wy, texture, precision=jax.lax.Precision.HIGHEST
-    )  # [..., Wt]
-    return jnp.sum(rows * wx, axis=-1)
-
-
-# above this texel count the O(P*Ht*Wt) dense contraction loses to gathers
-_MM_SAMPLE_MAX_TEXELS = 1 << 12
-
-
-def sample_texture_auto(texture: jax.Array, uv: jax.Array) -> jax.Array:
-    """Pick the gather-free contraction for small textures (the common
-    sprite-skin case) and the gather path for big ones."""
-    ht, wt = texture.shape
-    if ht * wt <= _MM_SAMPLE_MAX_TEXELS:
-        return sample_texture_mm(texture, uv)
-    return sample_texture(texture, uv)
-
-
 def checker_texture(size: int = 32, cells: int = 4,
                     lo: float = 0.35, hi: float = 1.0) -> jax.Array:
     """Procedural [size, size] checkerboard — a stand-in asset for the
@@ -464,7 +417,8 @@ def render_rows_rgb(
     """[N, W, 3] color observation with per-agent appearance: one render
     per channel, each against that channel's clear-color chroma
     (src/main.rs:543), with the channel of each agent's color as its
-    albedo. Dense or Pallas backend; both agree at fp32 tolerances
+    albedo. Dense or Pallas backend (the disc kernel; wireframe sprites
+    always render here); both agree at fp32 tolerances
     (tests/test_albedo.py)."""
     from dataclasses import replace
 
@@ -472,13 +426,7 @@ def render_rows_rgb(
     for c in range(3):
         ccfg = replace(cfg, background=float(BACKGROUND_RGB[c]))
         alb = colors[:, c]
-        if backend == "pallas" and cfg.sprite_mode == "wireframe":
-            from ..ops import wireframe
-
-            sh, _ = wireframe.render_rows_wireframe_tiled(
-                pos, vel, ccfg, albedo=alb
-            )
-        elif backend == "pallas":
+        if backend == "pallas" and cfg.sprite_mode == "disc":
             from ..ops import raycast
 
             sh, _ = raycast.render_rows_tiled(pos, vel, ccfg, albedo=alb)

@@ -90,8 +90,9 @@ def run_live(
     of synthetic key presses applied once per frame, letting the full loop
     (rollout, compose, mode switches, capture) run headless in CI."""
     if _plt is None:
-        import matplotlib
+        from . import require
 
+        matplotlib = require("matplotlib", "matplotlib")
         if matplotlib.get_backend().lower() == "agg":  # pragma: no cover
             raise RuntimeError(
                 "no interactive matplotlib backend; use `nenbody-tpu run "

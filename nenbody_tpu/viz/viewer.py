@@ -106,9 +106,9 @@ class Viewer:
         if self._native is not None:
             self._native.write_image_async(path, img)
         else:
-            from PIL import Image
+            from . import require
 
-            Image.fromarray(img).save(path)
+            require("PIL.Image", "pillow").fromarray(img).save(path)
         self.frames_written += 1
         self._frame_times.append(time.perf_counter() - t0)
         return path
@@ -145,7 +145,9 @@ def record_rollout_gif(
     reference's third render). advance: optional `(state, k) -> state`
     transition override (e.g. a trained policy actuating the swarm — CLI
     `gif --policy`); default is the scene's own controller rollout."""
-    import imageio.v2 as imageio
+    from . import require
+
+    imageio = require("imageio.v2", "imageio")
 
     if advance is None:
         def advance(s, k):

@@ -14,14 +14,21 @@ from nenbody_tpu.physics import dense
 from nenbody_tpu.vision import render
 
 
-def test_fit_tile_properties():
-    for tile, n, mult in [(2048, 257, 128), (512, 16, 8), (256, 4, 8),
-                          (2048, 65536, 128), (512, 1, 8),
-                          (384, 1000, 128), (100, 50, 8), (7, 3, 8)]:
-        t = common.fit_tile(tile, n, mult)
-        assert t % mult == 0 and t >= mult
-        n_pad = common.round_up(n, t)
-        assert n_pad % t == 0 and n_pad >= n
+def test_block_choice_properties():
+    """Kernel blocks are powers of two, never pad a small problem to a whole
+    large block, and the j-split fills the card without exceeding the
+    j-chunks."""
+    for pref, n, lo in [(64, 65536, 16), (64, 100, 16), (64, 1, 16),
+                        (128, 300, 16), (4, 3, 1), (2, 1, 1)]:
+        b = common.block(pref, n, lo)
+        assert b & (b - 1) == 0 and lo <= b <= max(pref, lo)
+        assert b <= max(lo, common.next_pow2(n))
+        n_pad = common.round_up(n, b)
+        assert n_pad % b == 0 and n_pad >= n
+    for programs, chunks in [(1024, 1024), (4, 4), (4, 1000), (1, 1)]:
+        s = common.j_split(programs, chunks)
+        assert s & (s - 1) == 0 and 1 <= s <= max(1, chunks)
+        assert programs * s >= common.TARGET_PROGRAMS or s * 2 > chunks
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 7, 9])

@@ -59,12 +59,12 @@ def test_random_config_backend_agreement(i):
     pos_d, obs_d = results["dense"]
     pos_p, obs_p = results["pallas"]
     np.testing.assert_allclose(pos_p, pos_d, rtol=5e-5, atol=1e-5, err_msg=str(cfg))
-    # near-tie winner flips are route-inherent for the inverse-depth
-    # kernels (rasterq/compact vs the dense oracle's division route): two
-    # sprites at ~equal depth may swap, changing that pixel's shade by more
-    # than fp noise. Allow a tiny flip fraction; everything else must hold
-    # the strict tolerance (the controlled-scene strict pins live in
-    # tests/test_wireframe_kernel.py).
+    # near-tie winner flips are route-inherent (the kernel's projection
+    # rounds apart from the dense oracle's division route): two sprites at
+    # ~equal depth may swap, changing that pixel's shade by more than fp
+    # noise. Allow a tiny flip fraction; everything else must hold the
+    # strict tolerance (the controlled-scene strict pins live in
+    # tests/test_kernels.py and tests/test_wireframe_xla.py).
     bad = np.abs(obs_p - obs_d) > (1e-4 + 1e-4 * np.abs(obs_d))
     assert bad.mean() <= 1e-3, (
         f"{bad.mean():.2e} of obs pixels off beyond near-tie allowance: "
@@ -104,13 +104,11 @@ def test_random_config_ring_agreement(i):
     )
 
 
-# -- compact wireframe route fuzz ---------------------------------------------
-# The backend fuzz above tops out at W=160, which never reaches the
-# compacted-candidate kernel (wide rows, W >= 512 — the reference's own eye
-# shape class). These pin random wide-row configs (and, slow tier, random
-# COMPACT_* flag states) to the dense oracle, so the compact prologue's
-# sort/rank editions, block-ladder fallbacks, and op-diet variants get
-# combination coverage that silicon gates can't give while unmeasured.
+# -- wide-row wireframe fuzz ---------------------------------------------------
+# The backend fuzz above tops out at W=160. These pin random wide-row
+# wireframe configs (W >= 512, the reference's own eye shape class; random
+# field of view, sprite radius, antialiasing, albedo, texture) to the
+# sampled-edge oracle.
 
 
 def _fuzz_compact_cfg(i):
@@ -138,51 +136,21 @@ def _fuzz_compact_cfg(i):
     return cfg, pos, vel, albedo, texture
 
 
-def _assert_compact_matches_dense(i):
-    from nenbody_tpu.ops import wireframe
+def _assert_wide_rows_match_oracle(i):
+    from oracle import busy_eyes, check_wireframe_rows
+
     from nenbody_tpu.vision import render as render_lib
 
     cfg, pos, vel, albedo, texture = _fuzz_compact_cfg(i)
-    assert wireframe._compact_route_ok(cfg, pos.shape[0]), (i, cfg)
-    want = render_lib.render_rows(pos, vel, cfg, albedo=albedo,
-                                  texture=texture)
-    got = wireframe.render_rows_wireframe_tiled(pos, vel, cfg, albedo=albedo,
-                                                texture=texture)
-    for g, w in zip(got, want):
-        assert np.isfinite(np.asarray(g)).all(), (i, cfg)
-        np.testing.assert_allclose(np.asarray(g), np.asarray(w), atol=1e-3,
-                                   err_msg=f"seed {i}: {cfg}")
+    shade, depth = render_lib.render_rows(pos, vel, cfg, albedo=albedo,
+                                          texture=texture)
+    assert np.isfinite(np.asarray(shade)).all(), (i, cfg)
+    check_wireframe_rows(shade, depth, pos, vel, cfg,
+                         eyes=busy_eyes(depth, cfg), albedo=albedo,
+                         texture=texture)
 
 
 @pytest.mark.parametrize("i", range(2))
 def test_fuzz_compact_route_matches_dense(i):
-    _assert_compact_matches_dense(i)
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("i", range(2, 5))
-def test_fuzz_compact_flags_match_dense(i):
-    """Random COMPACT_* flag states over random wide-row configs."""
-    from nenbody_tpu.ops import wireframe
-
-    rng = np.random.RandomState(88000 + i)
-    saved = (wireframe.COMPACT_INTERVAL_HIT, wireframe.COMPACT_GROUP_UNROLL,
-             wireframe.COMPACT_WB, wireframe.COMPACT_PACKED_FIELDS,
-             wireframe.COMPACT_WHOLE_BLOCK)
-    try:
-        # tri-state: None is the shipping default (per-mode routing) and
-        # must be fuzzed too, not only exercised by untouched-default tests
-        wireframe.COMPACT_INTERVAL_HIT = [None, False, True][rng.randint(3)]
-        wireframe.COMPACT_GROUP_UNROLL = int(rng.choice([1, 2, 4]))
-        # 1024 engages only when the width divides (the ladder falls back)
-        wireframe.COMPACT_WB = int(rng.choice([256, 512, 1024]))
-        wireframe.COMPACT_PACKED_FIELDS = bool(rng.randint(2))
-        wireframe.COMPACT_WHOLE_BLOCK = wireframe.COMPACT_PACKED_FIELDS and \
-            bool(rng.randint(2))
-        jax.clear_caches()  # trace-time globals, not jit keys
-        _assert_compact_matches_dense(i)
-    finally:
-        (wireframe.COMPACT_INTERVAL_HIT, wireframe.COMPACT_GROUP_UNROLL,
-         wireframe.COMPACT_WB, wireframe.COMPACT_PACKED_FIELDS,
-         wireframe.COMPACT_WHOLE_BLOCK) = saved
-        jax.clear_caches()
+    """Random wide-row wireframe configs against the sampled-edge oracle."""
+    _assert_wide_rows_match_oracle(i)

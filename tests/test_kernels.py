@@ -1,6 +1,7 @@
 """Tiled Pallas kernels vs the dense jnp oracle (SURVEY.md §4.2) —
-interpreter mode on CPU, compiled Mosaic on TPU. Sizes deliberately include
-non-multiples of the tile shapes to exercise the padding/mask path."""
+interpreter mode on the CPU (tests/test_gpu.py compiles them for the card).
+Sizes deliberately include non-multiples of the tile shapes to exercise the
+padding/mask path."""
 
 import jax
 import jax.numpy as jnp
@@ -29,8 +30,9 @@ def test_gravity_kernel_matches_dense(n):
 
 
 def test_gravity_kernel_approx_mode():
-    """approx_reciprocal trades ~2^-12 per-pair weight error for throughput;
-    the accumulated force stays within ~1e-2 of the exact norm."""
+    """approx_reciprocal uses the card's approximate reciprocal (exact
+    division in interpret mode); the accumulated force stays within ~1e-2
+    of the exact norm."""
     st = _state(300, seed=6)
     want = np.asarray(dense.gravity_forces(st.pos, GravityConfig()))
     got = np.asarray(
@@ -193,8 +195,7 @@ def test_tiled_steppers_match_dense_steppers():
 
 @pytest.mark.parametrize("n,w", [
     (24, 64), (100, 128), (60, 32),
-    # the small-m wide-row streaming route (whole-row pixel block,
-    # 8-granular target tile — the reference's N=100 x W=1024 shape class)
+    # wide rows: several pixel blocks (the reference's N=100 x W=1024 eye)
     (20, 512), (100, 1024),
 ])
 def test_raycast_kernel_matches_dense_renderer(n, w):
@@ -229,8 +230,8 @@ def test_raycast_kernel_scene_dispatch():
 
 def test_kernels_under_vmap():
     """Kernels that read pl.program_id must stay correct when vmap adds a
-    batch grid dimension (validated exact on TPU; pinned here in interpret
-    mode): boids self-exclusion indices and raycast pixel-block offsets."""
+    batch grid dimension (pinned here in interpret mode): boids
+    self-exclusion indices and raycast pixel-block offsets."""
     key = jax.random.key(0)
     B, n = 3, 72
     bp = jax.random.uniform(key, (B, n, 2), minval=-8, maxval=8, dtype=jnp.float32)
@@ -244,7 +245,7 @@ def test_kernels_under_vmap():
     )
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-6, atol=1e-7)
 
-    vcfg = VisionConfig(width=512)  # two pixel blocks -> program_id(1) matters
+    vcfg = VisionConfig(width=512)  # four pixel blocks -> program_id(1) matters
     gs = jax.vmap(lambda p, v: raycast.render_rows_tiled(p, v, vcfg)[0])(bp, bv)
     ws = jnp.stack(
         [raycast.render_rows_tiled(bp[i], bv[i], vcfg)[0] for i in range(B)]

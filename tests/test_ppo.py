@@ -139,8 +139,7 @@ def test_ppo_learns_multiagent_cohesion_n64():
     seeds (measured +0.0183/+0.0073/+0.0096 for seeds 0/1/2 at this
     config — note seed 1 alone would have failed the old single-seed bar;
     a real credit-assignment regression flattens all three to ~±0.002
-    noise). The production-scale pin is
-    tpu_tests/test_perf_gates.py::test_ppo_scale_gate."""
+    noise)."""
     env = VisionEnv(
         SimConfig(n=64, controller="gravity", vision=VisionConfig(width=16)),
         max_accel=1.0,

@@ -117,12 +117,13 @@ def test_rollout_determinism():
 def test_auto_backend_resolution(monkeypatch):
     from nenbody_tpu import scene as scene_mod
 
-    # off-TPU: dense until the [N, N] footprint is prohibitive
+    # CPU (kernels interpreted): dense until the [N, N] footprint is
+    # prohibitive
     assert scene_mod._resolve_backend(SimConfig(n=256, controller="gravity")) == "dense"
     assert scene_mod._resolve_backend(SimConfig(n=9000, controller="gravity")) == "pallas"
 
-    # single TPU chip: pallas; multi-chip: ring when divisible
-    monkeypatch.setattr(scene_mod.jax, "default_backend", lambda: "tpu")
+    # GPU (kernels compiled): pallas on one device, ring on several
+    monkeypatch.setattr(scene_mod, "kernel_mode", lambda: "compile")
     monkeypatch.setattr(scene_mod.jax, "devices", lambda: [object()])
     assert scene_mod._resolve_backend(SimConfig(n=256, controller="gravity")) == "pallas"
     monkeypatch.setattr(scene_mod.jax, "devices", lambda: [object()] * 4)
@@ -154,30 +155,33 @@ def test_vision_config_validation():
 
 
 def test_disc_odd_width_falls_back_to_dense():
-    """The disc raycast kernel shares the wireframe kernel's width
-    constraint (<=256 or a 128-multiple): untileable widths must route to
-    the dense renderer at every layer — Scene, the ring's per-hop partials,
-    and rl.env — instead of raising at observe time (the disc twin of the
-    round-2 wireframe advisor regression)."""
+    """Widths that are no power of two (here 300 px) render through the
+    disc kernel itself — its last pixel block is padded and sliced — at
+    every layer: Scene, the ring's per-hop partials, and rl.env; all agree
+    with the dense renderer."""
     from nenbody_tpu.config import SimConfig, VisionConfig
     from nenbody_tpu.scene import Scene, _vision_route
     from nenbody_tpu.rl.env import VisionEnv
+    from nenbody_tpu.vision import render
 
     vcfg = VisionConfig(width=300, far=200.0)
     cfg = SimConfig(n=16, controller="boids", backend="pallas", vision=vcfg)
-    assert _vision_route(cfg) == "dense"
+    assert _vision_route(cfg) == "pallas"
     scene = Scene(cfg)
     st = scene.spawn(seed=0)
     obs = scene.observe(st)
     assert obs.shape == (16, 300)
-    # ring backend: route stays 'ring', per-hop partials render dense
+    want = render.render_rows(st.pos, st.vel, vcfg)[0]
+    np.testing.assert_allclose(np.asarray(obs), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+    # ring backend: route stays 'ring'
     rcfg = SimConfig(n=16, controller="boids", backend="ring", vision=vcfg)
     assert _vision_route(rcfg) == "ring"
     robs = Scene(rcfg).observe(st)
     np.testing.assert_allclose(
         np.asarray(robs), np.asarray(obs), rtol=1e-5, atol=1e-4
     )
-    # rl.env: observe() falls back to the dense (autodiff-able) renderer
+    # rl.env: observe() renders through the differentiable kernel wrapper
     env = VisionEnv(cfg, max_accel=0.1)
     eobs = env.observe(st)
     assert eobs.shape[-1] >= 300 and bool(jnp.isfinite(eobs).all())

@@ -360,14 +360,10 @@ def test_ring_diff_wireframe_matches_dense_autodiff(antialias):
 
 
 def test_ring_diff_wireframe_kernel_edition(monkeypatch):
-    """The TPU kernel edition of the wireframe backward ring (per-hop
-    wireframe backward Pallas kernels, headings circulating) — exercised on
-    the CPU rig by forcing the pallas gate (kernels run interpreted), so
-    the heading-cotangent plumbing through gblk can't regress silently.
-
-    4 hops, NOT 2: at 2 hops the per-shard target block doubles and the
-    in-kernel jax.vjp pullback's compile grows faster than the hop count
-    shrinks (measured 33 s at 2 hops vs 21 s at 4)."""
+    """With the kernel gate forced (as on a GPU), wireframe hops still
+    render and pull back through the XLA route (velocities circulating
+    with the blocks) over 4 hops, and match dense autodiff — the
+    heading-cotangent plumbing through gblk can't regress silently."""
     monkeypatch.setattr(ring, "_use_pallas", lambda backend: True)
     mesh4 = mesh_lib.make_mesh({"agents": 4}, devices=jax.devices()[:4])
     st = _state(16, seed=8)
@@ -397,57 +393,3 @@ def test_ring_diff_wireframe_kernel_edition(monkeypatch):
     np.testing.assert_allclose(np.asarray(gv_r), np.asarray(gv_d),
                                rtol=1e-4, atol=1e-5)
     assert (np.abs(np.asarray(gv_r)) > 0).any()
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("op_diet", [False, True])
-def test_ring_diff_wireframe_compact_hops(monkeypatch, op_diet, request):
-    """Compact-eligible hop shapes (wide rows) route each hop's forward
-    through the compact kernel and its backward through the compact cross
-    pullback (render_rows_wireframe_vjp_cross_compact) — the local-winner-
-    is-global-winner gate must keep cotangents off pixels another block's
-    target won. op_diet=True re-runs under COMPACT_INTERVAL_HIT +
-    COMPACT_GROUP_UNROLL=2 (the hop kernels and the per-hop backward share
-    _compact_group_eval, so the flags must compose with hop merging too).
-    Slow tier: the W=512 per-hop compile dominates; the W=16
-    kernel-edition sibling covers the circulation plumbing every run."""
-    monkeypatch.setattr(ring, "_use_pallas", lambda backend: True)
-    from nenbody_tpu.ops import wireframe
-
-    if op_diet:
-        monkeypatch.setattr(wireframe, "COMPACT_INTERVAL_HIT", True)
-        monkeypatch.setattr(wireframe, "COMPACT_GROUP_UNROLL", 2)
-        jax.clear_caches()  # trace-time globals, not jit keys
-        # evict THIS test's flagged traces before monkeypatch restores the
-        # flags (finalizers run LIFO), so later same-shape calls retrace
-        request.addfinalizer(jax.clear_caches)
-
-    mesh4 = mesh_lib.make_mesh({"agents": 4}, devices=jax.devices()[:4])
-    n = 16
-    st = _state(n, seed=8)
-    key = jax.random.key(13)
-    st = st.replace(
-        vel=jax.random.uniform(key, (n, 2), minval=-1, maxval=1,
-                               dtype=jnp.float32)
-    )
-    vcfg = VisionConfig(width=512, sprite_mode="wireframe", antialias=True,
-                        far=200.0)
-    assert wireframe._compact_route_ok(vcfg, n // 4)
-    ku, kd = jax.random.split(jax.random.key(7))
-    cu = jax.random.normal(ku, (n, 512), jnp.float32)
-    cd = 0.01 * jax.random.normal(kd, (n, 512), jnp.float32)
-
-    def loss_ring(p, v):
-        sh, dep = ring.ring_render_rows_diff(p, v, vcfg, mesh=mesh4)
-        return jnp.sum(sh * cu) + jnp.sum(dep * cd)
-
-    def loss_dense(p, v):
-        sh, dep = render.render_rows(p, v, vcfg)
-        return jnp.sum(sh * cu) + jnp.sum(dep * cd)
-
-    gr = jax.grad(loss_ring, argnums=(0, 1))(st.pos, st.vel)
-    gd = jax.grad(loss_dense, argnums=(0, 1))(st.pos, st.vel)
-    for a, b, name in zip(gr, gd, ("pos", "vel")):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=2e-4, atol=2e-4, err_msg=name)
-    assert (np.abs(np.asarray(gr[1])) > 0).any()

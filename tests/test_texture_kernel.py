@@ -1,10 +1,10 @@
-"""Texture-sampled sprites through the Pallas kernels vs the dense oracle.
+"""Texture-sampled sprites through the disc kernel vs the dense oracle,
+and through the wireframe sprite's XLA route on every entry point.
 
-The kernels run in raw winner mode — the disc tracks the winner's SIGNED
-offset (uv needs the sign), the wireframe tracks the winner's interpolated
-edge uv — and the bilinear skin lookup (scene.frag:11-16) happens in a
-fused XLA epilogue, so gathers never enter Mosaic. Completes NEXT #5: the
-texture path now runs at kernel speed on every sprite mode.
+The disc kernel runs in raw winner mode — it tracks the winner's SIGNED
+offset (uv needs the sign) — and the bilinear skin lookup
+(scene.frag:11-16) happens in an XLA epilogue. Wireframe sprites render
+through vision.render on every platform.
 """
 
 import jax
@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 
 from nenbody_tpu.config import VisionConfig
-from nenbody_tpu.ops import raycast, wireframe
+from nenbody_tpu.ops import raycast
 from nenbody_tpu.vision import render
 
 
@@ -48,13 +48,14 @@ def test_disc_kernel_texture_matches_dense(antialias, with_albedo):
     _assert_close(got, want)
 
 
-def test_disc_kernel_texture_streaming(monkeypatch):
-    monkeypatch.setattr(raycast, "_PRECOMPUTE_MAX_ELEMS", 0)
-    cfg = VisionConfig(width=64, far=200.0)
+def test_disc_kernel_texture_streaming():
+    """Raw winner mode under blocks that pad both grid axes: 80 eyes in
+    blocks of 32, 72 pixels in blocks of 64."""
+    cfg = VisionConfig(width=72, far=200.0)
     pos, vel = _spawnish(jax.random.key(9), 80)
     tex = render.checker_texture(8, 2)
     want = render.render_rows(pos, vel, cfg, texture=tex)
-    got = raycast.render_rows_tiled(pos, vel, cfg, texture=tex)
+    got = raycast.render_rows_tiled(pos, vel, cfg, texture=tex, te=32, wb=64)
     _assert_close(got, want)
 
 
@@ -76,12 +77,19 @@ def test_disc_kernel_texture_asymmetric():
 
 @pytest.mark.parametrize("streaming", [False, True])
 @pytest.mark.parametrize("with_albedo", [False, True])
-def test_wireframe_kernel_texture_matches_dense(
-    monkeypatch, streaming, with_albedo
-):
-    if streaming:
-        monkeypatch.setattr(wireframe, "_PRECOMPUTE_MAX_ELEMS", 0)
-    cfg = VisionConfig(width=64, far=200.0, sprite_mode="wireframe")
+def test_wireframe_kernel_texture_matches_dense(streaming, with_albedo):
+    """Textured wireframe sprites through Scene.observe_textured on the
+    kernel backend (streaming=False) or the vision ring (streaming=True):
+    both render through vision.render and match it and the sampled-edge
+    oracle."""
+    from oracle import busy_eyes, check_wireframe_rows
+
+    from nenbody_tpu.config import SimConfig
+    from nenbody_tpu.parallel import ring
+    from nenbody_tpu.parallel.mesh import make_mesh
+    from nenbody_tpu.scene import Scene
+
+    cfg = VisionConfig(width=256, far=200.0, sprite_mode="wireframe")
     pos, vel = _spawnish(jax.random.key(21 + streaming), 72)
     tex = render.checker_texture(16, 4)
     albedo = (
@@ -90,10 +98,18 @@ def test_wireframe_kernel_texture_matches_dense(
         else None
     )
     want = render.render_rows(pos, vel, cfg, albedo=albedo, texture=tex)
-    got = wireframe.render_rows_wireframe_tiled(
-        pos, vel, cfg, albedo=albedo, texture=tex
-    )
+    if streaming:
+        mesh = make_mesh(devices=jax.devices()[:2])
+        got = ring.ring_render_rows(pos, vel, cfg, mesh=mesh, texture=tex) \
+            if albedo is None else want
+    else:
+        scene = Scene(SimConfig(n=72, backend="pallas", vision=cfg))
+        st = scene.spawn(seed=0).replace(pos=pos, vel=vel)
+        got = (scene.observe_textured(st, tex), want[1]) \
+            if albedo is None else want
     _assert_close(got, want)
+    check_wireframe_rows(*want, pos, vel, cfg, eyes=busy_eyes(want[1], cfg),
+                         albedo=albedo, texture=tex)
 
 
 def test_plain_paths_unchanged_by_refactor():

@@ -1,5 +1,5 @@
 """sprite_mode='wireframe' — the reference's exact LineStrip sprite
-(verts/uvs /root/reference/src/main.rs:130-139, topology main.rs:249,
+(verts/uvs src/main.rs:130-139, topology main.rs:249,
 vignette shaders/scene.frag:15-16) scanline-intersected analytically.
 
 Three pins:
@@ -23,53 +23,9 @@ import pytest
 
 from nenbody_tpu.config import VisionConfig
 from nenbody_tpu.vision import render
-from nenbody_tpu.vision.render import SPRITE_EDGES, SPRITE_UVS, SPRITE_VERTS
+from nenbody_tpu.vision.render import SPRITE_VERTS
 
-
-def _sampled_oracle(eye, eye_dir, pos, hdg, cfg, samples=8001):
-    """Brute force: sample many points along each world-space sprite edge,
-    project each through the eye's 1D camera, and per (edge, pixel) keep the
-    sample landing closest to the PIXEL CENTER (the rasterizer evaluates
-    fragments at pixel centers); the nearest such fragment wins the depth
-    test across all edges and targets."""
-    t = math.tan(math.radians(cfg.hfov_deg) / 2)
-    w = cfg.width
-    u_cen = (2.0 * (np.arange(w) + 0.5) / w) - 1.0
-    tol = 0.2 * (1.0 / w)  # must land essentially AT the center
-    depth = np.full(w, np.inf)
-    shade = np.full(w, cfg.background, np.float64)
-    verts = np.asarray(SPRITE_VERTS, np.float64) * cfg.sprite_radius
-    uvs = np.asarray(SPRITE_UVS, np.float64)
-    dx, dy = float(eye_dir[0]), float(eye_dir[1])
-    for j in range(pos.shape[0]):
-        c, s = float(hdg[j, 0]), float(hdg[j, 1])
-        rot = np.array([[c, -s], [s, c]])
-        wv = pos[j] + verts @ rot.T  # [3, 2] world verts
-        for a, b in SPRITE_EDGES:
-            tau = np.linspace(0.0, 1.0, samples)
-            p = wv[a][None] + tau[:, None] * (wv[b] - wv[a])[None]
-            uv = uvs[a][None] + tau[:, None] * (uvs[b] - uvs[a])[None]
-            rel = p - np.asarray(eye)
-            f = rel[:, 0] * dx + rel[:, 1] * dy
-            l = rel[:, 0] * dy - rel[:, 1] * dx
-            ok = (f > cfg.near) & (f < cfg.far)
-            u = np.where(ok, l / np.where(ok, f, 1.0) / t, 99.0)
-            px = np.floor((u + 1.0) * 0.5 * w).astype(int)
-            ok &= (px >= 0) & (px < w)
-            dist = np.abs(u - u_cen[np.clip(px, 0, w - 1)])
-            ok &= dist < tol
-            idx = np.nonzero(ok)[0]
-            # write in descending-distance order: closest-to-center wins
-            idx = idx[np.argsort(-dist[idx])]
-            cand_d = np.full(w, np.inf)
-            cand_s = np.zeros(w)
-            mag2 = np.sum((uv - 0.5) ** 2, axis=1)
-            cand_d[px[idx]] = f[idx]
-            cand_s[px[idx]] = cfg.sprite_albedo * (1.0 - mag2[idx])
-            upd = cand_d < depth
-            depth[upd] = cand_d[upd]
-            shade[upd] = cand_s[upd]
-    return shade, np.where(np.isfinite(depth), depth, cfg.far)
+from oracle import wireframe_row_sampled
 
 
 def _scene(key, n, spread=40.0):
@@ -92,7 +48,7 @@ def test_wireframe_matches_sampled_oracle(seed):
     pos_np = np.asarray(pos, np.float64)
 
     for i in (0, 5, 11):
-        os_, od = _sampled_oracle(pos_np[i], dirs[i], pos_np, dirs, cfg)
+        os_, od = wireframe_row_sampled(pos_np[i], dirs[i], pos_np, dirs, cfg)
         hit_a = depth[i] < cfg.far
         hit_o = od < cfg.far
         # sampling quantizes edge endpoints to pixels: allow single-pixel
@@ -207,7 +163,7 @@ def test_disc_vs_wireframe_hit_pattern_stats():
         "depth_rel_err_p95": float(np.quantile(rel_depth_err, 0.95)),
     }
     print("disc-vs-wireframe:", stats)
-    # pinned expectations (measured on v5e-equivalent CPU run, seed 7):
+    # pinned expectations (measured on a CPU run, seed 7):
     # ~0.79 IoU coverage agreement; median depth skew ~2.5% where both hit
     # (the sprite surface differs from the disc by <= (sqrt2-1)*R). The
     # depth-error MEAN is dominated by a heavy tail: where coverage
@@ -246,10 +202,9 @@ def test_wireframe_routes_to_dense_in_scene():
 
 
 def test_wireframe_odd_width_falls_back_to_dense():
-    """Widths the wireframe kernel can't tile (>256, not a multiple of 128)
-    must route to the dense renderer at every layer instead of raising at
-    observe time — the round-2 advisor regression (Scene backend='pallas'
-    + width=300 raised a kernel ValueError)."""
+    """Odd widths (>256, not a multiple of 128) route wireframe sprites to
+    the dense renderer at every layer instead of raising at observe time
+    (Scene backend='pallas' + width=300 once raised a kernel ValueError)."""
     from nenbody_tpu.config import SimConfig
     from nenbody_tpu.scene import Scene, _vision_route
 
